@@ -1,0 +1,116 @@
+"""Per-chunk feature extraction (port of pqa2_tpu/pipeline/features.py).
+
+The integer family only — the one every integer-trained model (the default
+``vmaf_v0.6.1`` among them) selects: integer VIF over four scales with the
+motion SAD fused into scale 0 (``ops/cuda_vif_int.py``), integer ADM2 over
+four db2 levels (``ops/cuda_adm_int.py``), then motion/motion2 from the
+SADs. On CUDA tensors those run the hand-written kernels, on CPU tensors
+their plain versions.
+
+Halo contract (as the JAX package; trap 9): motion2 needs frames t-1 and
+t+1, so a chunk that continues a clip carries one extra frame on each side
+(``has_prev``/``has_next``); VIF and ADM run on the core frames only, the
+motion SAD on every frame. A clip scored in chunks gives the same features
+as the whole clip (tests/test_torch_slice.py).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from pqa2_tpu_torch.ops.cuda_adm_int import adm_features_int
+from pqa2_tpu_torch.ops.cuda_vif_int import log2_table_audit, vif_motion_features_int
+from pqa2_tpu_torch.ops.motion_int import features_from_sad_prev, motion_from_sad
+
+# "auto" follows the model's extractor family; "float"/"integer"/
+# "integer_fast" force one (same environment override as pqa2_tpu).
+FEATURE_PRECISION = os.environ.get("PQA2_FEATURE_PRECISION", "auto")
+
+
+def resolve_precision(model, setting: Optional[str] = None) -> str:
+    """'auto'|'float'|'integer'|'integer_fast' (+ model) -> concrete mode
+    (pqa2_tpu/pipeline/features.py:41)."""
+    p = setting or FEATURE_PRECISION
+    if p == "auto":
+        if hasattr(model, "models"):  # bootstrap stack
+            model = model.models[0]
+        return ("integer"
+                if getattr(model, "uses_integer_features", False) else "float")
+    if p not in ("float", "integer", "integer_fast"):
+        raise ValueError(f"unknown feature precision {p!r}")
+    return p
+
+
+def model_feature_params(model, precision: Optional[str] = None, *,
+                         device="cuda") -> Dict[str, object]:
+    """Extraction knobs implied by a model's feature options
+    (pqa2_tpu/pipeline/features.py:232).
+
+    For the integer family this also audits the statistic's Q11 log2
+    lookup on ``device`` (:func:`log2_table_audit`, 32768 mantissas),
+    where the JAX package runs ``log2_direct_exceptions``; it runs at
+    every call, i.e. once per scored clip, and raises on a mismatch."""
+    if hasattr(model, "models"):  # BootstrapModel: sub-models share options
+        model = model.models[0]
+    out = {
+        "vif_gain": float(model.feature_opt("vif_scale0", "vif_enhn_gain_limit",
+                                            float("inf"))),
+        "adm_gain": float(model.feature_opt("adm2", "adm_enhn_gain_limit", 100.0)),
+        "vif_variant": "default" if model.uses_integer_features else "classic",
+        "precision": resolve_precision(model, precision),
+    }
+    if out["precision"] == "integer":
+        log2_table_audit(device)
+    return out
+
+
+def extract_features_batched(
+    ref: torch.Tensor,
+    dist: torch.Tensor,
+    *,
+    vif_gain: float = float("inf"),
+    adm_gain: float = 100.0,
+    vif_variant: str = "default",
+    has_prev: bool = False,
+    has_next: bool = False,
+    precision: str = "float",
+    bit_depth: int = 8,
+) -> Dict[str, torch.Tensor]:
+    """(N, H, W) luma pair (halo frames included) -> dict of (N_core,) f32
+    features on the input's device: adm2, motion, motion2, vif_scale0..3.
+
+    Luma is integer codes or f32 on the 8-bit scale; ``bit_depth`` lets
+    the integer path recover the exact native codes."""
+    if precision == "integer_fast":
+        raise NotImplementedError(
+            "integer_fast (smooth-log VIF statistic): ROADMAP Q1.10")
+    if precision != "integer":
+        raise NotImplementedError("float family: ROADMAP Q1.10")
+    n, h, w = ref.shape
+    core = slice(1 if has_prev else 0, n - 1 if has_next else n)
+    vif, sad = vif_motion_features_int(ref, dist, core=core, gain_limit=vif_gain,
+                                       bit_depth=bit_depth)
+    motion, motion2 = features_from_sad_prev(
+        motion_from_sad(sad, h, w), n, has_prev=has_prev, has_next=has_next)
+    adm2 = adm_features_int(ref[core], dist[core], gain_limit=adm_gain,
+                            bit_depth=bit_depth)
+    return {
+        "adm2": adm2,
+        "motion": motion,
+        "motion2": motion2,
+        "vif_scale0": vif[:, 0],
+        "vif_scale1": vif[:, 1],
+        "vif_scale2": vif[:, 2],
+        "vif_scale3": vif[:, 3],
+    }
+
+
+def fetch_features(feats: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Feature dict -> host numpy through one stacked device-to-host copy."""
+    keys = sorted(feats)
+    packed = torch.stack([feats[k] for k in keys]).cpu().numpy()
+    return {k: packed[i] for i, k in enumerate(keys)}

@@ -1,0 +1,316 @@
+"""Streaming clip scoring (port of pqa2_tpu/pipeline/streaming.py:stream_score).
+
+A producer thread decodes paired ref/dist chunks into a bounded queue
+while the device scores the previous chunk. One frame is carried across
+each chunk boundary on both sides (the motion halo). PSNR and SSIM run on
+all three planes beside the VMAF features; with both enabled, one kernel
+pass per plane gives SSIM and the SSE.
+
+Every tensor lives on the ``device`` argument; there is no other device
+choice and no retry loop (the JAX package retries on transient TPU
+"UNAVAILABLE" faults, which have no counterpart here).
+"""
+
+from __future__ import annotations
+
+import logging
+import queue
+import threading
+from typing import Callable, Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from pqa2_tpu.io.video import VideoReader
+from pqa2_tpu.models.loader import BootstrapModel, VMAFModel
+from pqa2_tpu.models.registry import get_model
+from pqa2_tpu_torch._device import require_cuda
+from pqa2_tpu_torch.models.svr import BootstrapPredictor, predictor_for_model
+from pqa2_tpu_torch.ops.cuda_ssim import ssim_sse_plane
+from pqa2_tpu_torch.ops.psnr import psnr_from_mse_np, psnr_planes_batched
+from pqa2_tpu_torch.ops.ssim import ssim_db_np
+from pqa2_tpu_torch.pipeline.features import (
+    extract_features_batched,
+    fetch_features,
+    model_feature_params,
+)
+from pqa2_tpu_torch.pipeline.scoring import DEFAULT_CHUNK_SIZE, ClipScores
+from pqa2_tpu_torch.utils.chunking import pad_frames
+
+logger = logging.getLogger(__name__)
+
+
+def _check_geometry(ref_r, dist_r, ref_path, dist_path) -> None:
+    rg = (ref_r.info.width, ref_r.info.height)
+    dg = (dist_r.info.width, dist_r.info.height)
+    if rg != dg:
+        raise ValueError(
+            f"resolution mismatch: reference {ref_path!r} is {rg[0]}x{rg[1]} "
+            f"but distorted {dist_path!r} is {dg[0]}x{dg[1]}; align/scale the "
+            f"inputs to a common geometry before scoring")
+
+
+def _chunk_producer(ref_path, dist_path, chunk_size, out_q, max_frames, stop,
+                    meta, subsample) -> None:
+    """Read paired chunks; each queue item is (ref_frames, dist_frames, eof)
+    or the exception that stopped the reader (pqa2_tpu streaming.py:68)."""
+    readers = []
+    try:
+        ref_r = VideoReader(ref_path)
+        readers.append(ref_r)
+        dist_r = VideoReader(dist_path)
+        readers.append(dist_r)
+        meta["ref_depth"] = int(ref_r.info.bit_depth)
+        meta["dist_depth"] = int(dist_r.info.bit_depth)
+        _check_geometry(ref_r, dist_r, ref_path, dist_path)
+        n_read = 0
+        ref_buf: List[Dict] = []
+        dist_buf: List[Dict] = []
+        while not stop.is_set():
+            rf = ref_r.read_frame()
+            df = dist_r.read_frame()
+            eof = rf is None or df is None
+            if not eof:
+                if n_read % subsample == 0:
+                    ref_buf.append(rf)
+                    dist_buf.append(df)
+                n_read += 1
+                if max_frames is not None and n_read >= max_frames:
+                    eof = True
+            if eof or len(ref_buf) == chunk_size:
+                out_q.put((ref_buf, dist_buf, eof))
+                ref_buf, dist_buf = [], []
+                if eof:
+                    return
+    except Exception as e:
+        logger.exception("producer failed")
+        out_q.put(e)
+    finally:
+        for r in readers:
+            r.close()
+
+
+def _upload(frames: List[np.ndarray], device: torch.device, div: float) -> torch.Tensor:
+    """Stack frames, copy the SOURCE dtype to the device, and bring >8-bit
+    codes onto the 8-bit scale there (f32 on the host would quadruple the
+    copy). uint16 travels as int32: torch has no general uint16 ops."""
+    a = np.stack(frames)
+    if a.dtype == np.uint16:
+        a = a.astype(np.int32)
+    t = torch.from_numpy(a).to(device)
+    if div != 1.0:
+        t = t.float() / div
+    return t
+
+
+def stream_score(
+    ref_path: str,
+    dist_path: str,
+    model: Union[str, VMAFModel, BootstrapModel] = "vmaf_v0.6.1",
+    chunk_size: int = DEFAULT_CHUNK_SIZE,
+    max_frames: Optional[int] = None,
+    with_psnr: bool = True,
+    with_ssim: bool = True,
+    frame_cb: Optional[Callable[[int], None]] = None,
+    subsample: int = 1,
+    precision: Optional[str] = None,
+    *,
+    device: Union[str, torch.device] = "cuda",
+) -> ClipScores:
+    """Score two video files chunk by chunk on ``device``.
+
+    subsample=k scores every k-th source frame (libvmaf n_subsample);
+    precision overrides the model-driven extractor choice."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        device = require_cuda(device)
+    subsample = max(1, int(subsample))
+    mdl = get_model(model) if isinstance(model, str) else model
+    params = model_feature_params(mdl, precision, device=device)
+    predictor = predictor_for_model(mdl, device=device)
+
+    q: "queue.Queue" = queue.Queue(maxsize=2)
+    stop = threading.Event()
+    meta: Dict = {}
+    producer = threading.Thread(
+        target=_chunk_producer,
+        args=(ref_path, dist_path, chunk_size, q, max_frames, stop, meta, subsample),
+        daemon=True)
+    producer.start()
+
+    feats_parts: List[Dict[str, np.ndarray]] = []
+    psnr_parts: List[Dict[str, np.ndarray]] = []
+    ssim_parts: List[Dict[str, np.ndarray]] = []
+    prev_ref_tail: Optional[Dict] = None
+    prev_dist_tail: Optional[Dict] = None
+    pending: Optional[Tuple[List[Dict], List[Dict], bool]] = None
+    total = 0
+
+    try:
+        while True:
+            item = pending if pending is not None else q.get()
+            pending = None
+            if isinstance(item, Exception):
+                raise item
+            ref_frames, dist_frames, eof = item
+            if not ref_frames:
+                break
+            # Peek one chunk ahead for the next-halo unless this is the end.
+            next_head: Optional[Tuple[Dict, Dict]] = None
+            if not eof:
+                nxt = q.get()
+                if isinstance(nxt, Exception):
+                    raise nxt
+                pending = nxt
+                if nxt[0]:
+                    next_head = (nxt[0][0], nxt[1][0])
+
+            has_prev = prev_ref_tail is not None
+            has_next = next_head is not None
+            ref_y = [f["y"] for f in ref_frames]
+            dist_y = [f["y"] for f in dist_frames]
+            if has_prev:
+                ref_y = [prev_ref_tail["y"]] + ref_y
+                dist_y = [prev_dist_tail["y"]] + dist_y
+            if has_next:
+                ref_y = ref_y + [next_head[0]["y"]]
+                dist_y = dist_y + [next_head[1]["y"]]
+            ref_depth = meta.get("ref_depth", 8)
+            dist_depth = meta.get("dist_depth", 8)
+            ref_div = float(1 << (ref_depth - 8))
+            dist_div = float(1 << (dist_depth - 8))
+            depth = max(ref_depth, dist_depth)
+            # A pair deeper than 8 bits scores both streams as f32 on the
+            # 8-bit scale (a shallower stream left as codes would land
+            # 2^(depth diff) dark in to_native_grid; pqa2_tpu
+            # streaming.py:221-228).
+            rb = _upload(ref_y, device, ref_div)
+            db = _upload(dist_y, device, dist_div)
+            if depth > 8:
+                rb, db = rb.float(), db.float()
+            feats = extract_features_batched(rb, db, has_prev=has_prev,
+                                             has_next=has_next, bit_depth=depth,
+                                             **params)
+            feats_parts.append(fetch_features(feats))
+
+            if with_psnr or with_ssim:
+                n0 = len(ref_frames)
+                lead = 1 if has_prev else 0
+                max_div = float(1 << (depth - 8))
+                peak = float((1 << depth) - 1)
+
+                def _pad(x):
+                    # Short tail chunks pad to the chunk shape, as in the JAX
+                    # package; the pad frames' outputs are sliced off below
+                    # (trap 9).
+                    return pad_frames(x, chunk_size)
+
+                def _planes(frames, key, div):
+                    return _pad(_upload([f[key] for f in frames], device, div).float())
+
+                def _unpad(d):
+                    return {k: np.asarray(v)[:n0] for k, v in d.items()}
+
+                # Luma reuses the tensors uploaded for the features (core
+                # frames, without the motion halo).
+                planes = {
+                    "y": (_pad(rb[lead: lead + n0].float()),
+                          _pad(db[lead: lead + n0].float())),
+                    "u": (_planes(ref_frames, "u", ref_div),
+                          _planes(dist_frames, "u", dist_div)),
+                    "v": (_planes(ref_frames, "v", ref_div),
+                          _planes(dist_frames, "v", dist_div)),
+                }
+            if with_psnr and with_ssim:
+                # One kernel pass per plane gives SSIM and the SSE; the
+                # 8-bit-scale SSE rescales exactly to native codes.
+                part: Dict[str, np.ndarray] = {}
+                pstats: Dict[str, np.ndarray] = {}
+                tot, tot_w, tot_sse = 0.0, 0, 0.0
+                for p, (r, d) in planes.items():
+                    vv, sse8 = ssim_sse_plane(r.contiguous(), d.contiguous(),
+                                              bit_depth=depth)
+                    vv = vv.cpu().numpy()
+                    part[f"ssim_{p}"] = vv
+                    w = r.shape[-2] * r.shape[-1]
+                    tot = tot + vv * w
+                    tot_w += w
+                    sse = sse8.cpu().numpy() * (max_div * max_div)
+                    mse = sse / w
+                    pstats[f"mse_{p}"] = mse
+                    pstats[f"psnr_{p}"] = psnr_from_mse_np(mse, max_value=peak)
+                    tot_sse = tot_sse + sse
+                pstats["mse_avg"] = tot_sse / tot_w
+                pstats["psnr_avg"] = psnr_from_mse_np(pstats["mse_avg"], max_value=peak)
+                psnr_parts.append(_unpad(pstats))
+                part["ssim_all"] = tot / tot_w
+                part["ssim_db"] = ssim_db_np(part["ssim_all"])
+                ssim_parts.append(_unpad(part))
+            elif with_psnr:
+                stats = psnr_planes_batched(*(planes[p][0] for p in "yuv"),
+                                            *(planes[p][1] for p in "yuv"))
+                for p in ("y", "u", "v", "avg"):
+                    stats[f"mse_{p}"] = stats[f"mse_{p}"] * (max_div * max_div)
+                    stats[f"psnr_{p}"] = psnr_from_mse_np(stats[f"mse_{p}"],
+                                                          max_value=peak)
+                psnr_parts.append(_unpad(stats))
+            elif with_ssim:
+                part = {}
+                tot, tot_w = 0.0, 0
+                for p, (r, d) in planes.items():
+                    vv = ssim_sse_plane(r.contiguous(), d.contiguous(),
+                                        bit_depth=depth)[0].cpu().numpy()
+                    part[f"ssim_{p}"] = vv
+                    w = r.shape[-2] * r.shape[-1]
+                    tot = tot + vv * w
+                    tot_w += w
+                part["ssim_all"] = tot / tot_w
+                part["ssim_db"] = ssim_db_np(part["ssim_all"])
+                ssim_parts.append(_unpad(part))
+
+            total += len(ref_frames)
+            if frame_cb is not None:
+                frame_cb(len(ref_frames))
+            prev_ref_tail = ref_frames[-1]
+            prev_dist_tail = dist_frames[-1]
+            if eof:
+                break
+    finally:
+        stop.set()
+        # Drain so the producer is never blocked on put().
+        try:
+            while True:
+                q.get_nowait()
+        except queue.Empty:
+            pass
+        producer.join(timeout=5.0)
+
+    if total == 0:
+        raise ValueError("empty input video")
+
+    features = {k: np.concatenate([p[k] for p in feats_parts]) for k in feats_parts[0]}
+    x = torch.as_tensor(np.stack([features[k] for k in mdl.feature_names], axis=-1),
+                        dtype=torch.float32, device=device)
+    with torch.no_grad():
+        if isinstance(predictor, BootstrapPredictor):
+            vmaf_t, boot_t = predictor(x)
+            vmaf, boot = vmaf_t.cpu().numpy(), boot_t.cpu().numpy()
+        else:
+            vmaf, boot = predictor(x).cpu().numpy(), None
+
+    max_depth = max(meta.get("ref_depth", 8), meta.get("dist_depth", 8))
+    out = ClipScores(
+        model_name=mdl.name if hasattr(mdl, "name") else str(model),
+        feature_names=tuple(mdl.feature_names),
+        features=features,
+        vmaf=vmaf,
+        bootstrap=boot,
+        peak=float((1 << max_depth) - 1),
+        uses_integer_features=getattr(mdl, "uses_integer_features", True),
+        frame_step=subsample,
+    )
+    if psnr_parts:
+        out.psnr = {k: np.concatenate([p[k] for p in psnr_parts]) for k in psnr_parts[0]}
+    if ssim_parts:
+        out.ssim = {k: np.concatenate([p[k] for p in ssim_parts]) for k in ssim_parts[0]}
+    return out

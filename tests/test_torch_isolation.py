@@ -1,0 +1,134 @@
+"""pqa2_tpu_torch stands without JAX and never hides a missing card.
+
+  * a fresh interpreter imports the package and every module of it with
+    ``jax`` absent from ``sys.modules``;
+  * no source file of the package imports jax;
+  * a kernel wrapper given a tensor that is neither on the CPU (plain
+    version) nor on a CUDA device raises, without computing on the CPU;
+  * asking for CUDA on a machine without a card raises (no CPU fallback),
+    and chip_smoke.py exits non-zero and prints no result there, as it does
+    in a directory without the repository.
+"""
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from pqa2_tpu.io import write_y4m
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "pqa2_tpu_torch"
+
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts)
+    for p in PKG.rglob("*.py") if p.name != "__main__.py")
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    return env
+
+
+def test_port_imports_without_jax():
+    code = ("import importlib, sys\n"
+            f"for m in {MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.'))\n"
+            "assert not bad, bad\n"
+            "print(len(sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert len(MODULES) >= 20
+
+
+def test_no_jax_import_in_sources():
+    for p in list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        for line in p.read_text().splitlines():
+            s = line.strip()
+            assert not (s.startswith("import jax") or s.startswith("from jax")), (p, s)
+
+
+def _meta(*shape, dtype=torch.int32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("wrapper", ["vif_int_scale", "adm_int_level", "ssim_sse_plane"])
+def test_wrappers_refuse_other_devices(wrapper, monkeypatch):
+    from pqa2_tpu_torch.ops import adm_int, cuda_adm_int, cuda_ssim, cuda_vif_int, ssim, vif_int
+
+    def forbidden(*a, **k):
+        raise AssertionError("plain version called for a non-CPU tensor")
+
+    monkeypatch.setattr(cuda_vif_int, "vif_int_scale_plain", forbidden)
+    monkeypatch.setattr(cuda_adm_int, "adm_level_plain", forbidden)
+    monkeypatch.setattr(cuda_ssim, "ssim_sse_plane_plain", forbidden)
+    assert vif_int.vif_int_scale_plain is not forbidden
+    assert adm_int.adm_level_plain is not forbidden and ssim.ssim_sse_plane_plain
+    with pytest.raises(ValueError, match="CUDA"):
+        if wrapper == "vif_int_scale":
+            cuda_vif_int.vif_int_scale(_meta(2, 32, 32), _meta(2, 32, 32), scale=0,
+                                       in_q=0, gain_limit=float("inf"), decimate=True)
+        elif wrapper == "adm_int_level":
+            cuda_adm_int.adm_int_level(_meta(2, 32, 32), _meta(2, 32, 32), level=0,
+                                       extra_row_shift=0, gain_limit=100.0)
+        else:
+            cuda_ssim.ssim_sse_plane(_meta(2, 32, 32, dtype=torch.float32),
+                                     _meta(2, 32, 32, dtype=torch.float32))
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+
+
+@pytest.mark.parametrize("entry", ["require_cuda", "library", "log2_audit",
+                                   "stream_score", "analyzer"])
+def test_cuda_requests_raise_without_a_card(entry, tmp_path):
+    _no_card()
+    from pqa2_tpu_torch import _build
+    from pqa2_tpu_torch._device import require_cuda
+    from pqa2_tpu_torch.app.vmaf_analyzer import VMAFAnalyzer
+    from pqa2_tpu_torch.ops.cuda_vif_int import log2_table_audit
+    from pqa2_tpu_torch.pipeline.streaming import stream_score
+
+    clip = str(tmp_path / "tiny.y4m")
+    y = np.full((32, 32), 128, np.uint8)
+    c = np.full((16, 16), 128, np.uint8)
+    write_y4m(clip, [{"y": y, "u": c, "v": c}] * 2)
+    if entry == "analyzer":
+        failed = []
+        a = VMAFAnalyzer(device="cuda")
+        a.analysis_failed.connect(failed.append)
+        assert a.analyze_videos(clip, clip) is None
+        assert failed and "torch.cuda.is_available() is False" in failed[0]
+        assert a.last_scores is None
+        return
+    fn = {"require_cuda": lambda: require_cuda("cuda"),
+          "library": _build.library,
+          "log2_audit": lambda: log2_table_audit("cuda"),
+          "stream_score": lambda: stream_score(clip, clip, device="cuda")}[entry]
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        fn()
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_card_or_repo(where, tmp_path):
+    _no_card()
+    script = ROOT / "chip_smoke.py"
+    cwd = ROOT
+    env = _env()
+    if where == "alone":
+        (tmp_path / "chip_smoke.py").write_bytes(script.read_bytes())
+        script, cwd = tmp_path / "chip_smoke.py", tmp_path
+        env.pop("PYTHONPATH")
+    out = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
