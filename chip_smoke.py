@@ -2,27 +2,38 @@
 """Smoke run of pqa2_tpu_torch on one NVIDIA Hopper card.
 
     python3 chip_smoke.py                  # needs one sm_90 card
-    python3 chip_smoke.py --profile DIR    # plus a torch.profiler pass
+    python3 chip_smoke.py --profile DIR    # plus torch.profiler passes
 
 Phases (each prints its lines; any failure raises and the exit code is 1):
 
   1. the card (nvidia-smi name and power limit), torch's CUDA version, and
-     the nvcc build of ``pqa2_tpu_torch/csrc`` (its time when it built);
+     the nvcc build of ``pqa2_tpu_torch/csrc`` (one nvcc per source, all
+     started together; its time when it built);
   2. every kernel against its plain PyTorch version on the card, at the
-     main path's shapes: a 34-frame 1080p luma chunk (32 core frames and
+     main paths' shapes: a 34-frame 1080p luma chunk (32 core frames and
      both halos) and 960x540 chroma, plus one 3840x2160 and one 4096x4096
      pair for VIF and ADM. Integer outputs must be equal; SSIM within
-     1e-6; the log2 audit 0 mismatches;
-  3. the slice: a synthetic 1920x1080 4:2:0 y4m pair of 72 frames through
-     ``VMAFAnalyzer(device="cuda").analyze_videos`` with vmaf_v0.6.1 and
-     PSNR+SSIM (chunks 32+32+8), its artifacts, every kernel's launch
-     count over that run, and frames 0 and 32 against the numpy oracles
-     of pqa2_tpu.golden;
+     1e-6; the log2 audit 0 mismatches. The float kernels (VIF with the
+     classic statistic, gain inf and 1.0; ADM, gain 100 and 1.0; the motion
+     SAD) on the 1080p chunk and a 3840x2160 pair: decimated and
+     approximation planes equal in every bit, per-frame sums within 1e-5
+     relative, features within 1e-5, and a second launch on the same input
+     gives the same bits;
+  3. the slices: a synthetic 1920x1080 4:2:0 y4m pair of 72 frames through
+     ``VMAFAnalyzer(device="cuda").analyze_videos``, once with
+     ``vmaf_v0.6.1`` (the integer family) and once with
+     ``vmaf_float_v0.6.1`` (the float family), both with PSNR+SSIM (chunks
+     32+32+8): their artifacts, every kernel's launch count over each run
+     (the counts are set to 0 just before it and read just after; the float
+     run must launch kernels 5-7 and none of kernels 1-3), and frames 0 and
+     32 against the port's numpy oracles (``pqa2_tpu_torch.golden``);
   4. CUDA-event times of each kernel against its plain version at 1080p,
-     and the slice's frames per second.
+     each kernel's bound (the least time the card could take for the same
+     work), and each slice's frames per second, cold and warm.
 
 The line before the last is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
+``{"ok": true, "device": {...}}``. The script imports nothing of JAX and
+nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -49,14 +60,35 @@ KERNELS = {
                       "pqa2_tpu/ops/pallas_adm_int.py:381"),
     "ssim_sse_plane": ("pqa2_tpu_torch/csrc/ssim.cu",
                        "pqa2_tpu/ops/pallas_ssim.py:225"),
+    "vif_scale": ("pqa2_tpu_torch/csrc/vif.cu",
+                  "pqa2_tpu/ops/pallas_vif.py:404"),
+    "adm_level": ("pqa2_tpu_torch/csrc/adm.cu",
+                  "pqa2_tpu/ops/pallas_adm.py:265"),
+    "motion_sad": ("pqa2_tpu_torch/csrc/motion.cu",
+                   "pqa2_tpu/ops/pallas_motion.py:137"),
 }
+INTEGER_KERNELS = ("vif_int_scale", "log2_table_audit", "adm_int_level")
+FLOAT_KERNELS = ("vif_scale", "adm_level", "motion_sad")
 
-# Tolerances against the numpy oracles (pqa2_tpu.golden): the features are
-# f32 while the oracles combine in float64.
-VIF_ATOL = 2e-6      # the budget of tests/test_integer.py:80
-ADM_ATOL = 2e-6      # f32 cbrt/rounding chain
-MOTION_RTOL = 1e-6   # f32 rounding of an exact integer SAD
+# Tolerances against the numpy oracles (pqa2_tpu_torch.golden): the features
+# are f32 while the oracles combine in float64.
+VIF_ATOL = 2e-6      # integer family: the budget of tests/test_integer.py:80
+ADM_ATOL = 2e-6      # integer family: f32 cbrt/rounding chain
+MOTION_RTOL = 1e-6   # integer family: f32 rounding of an exact integer SAD
 SSIM_ATOL = 1e-6     # kernel vs plain: float64 sums in another order
+FLOAT_VIF_ATOL = 2e-4     # float family vs float64: the JAX package's oracle
+FLOAT_ADM_ATOL = 2e-4     # budgets (tests/test_ops.py:64, :98, :116)
+FLOAT_MOTION_ATOL = 2e-3
+FLOAT_SUM_RTOL = 1e-5     # float kernel vs plain: sums of bit-equal per-pixel
+FLOAT_FEAT_ATOL = 1e-5    # values, float64 in the kernel, f32 in torch
+
+# The card's peaks for the bound (NVIDIA H100 SXM data sheet, as the
+# on-chip-measurement guide lists them): HBM3 bytes/s, and f32 operations/s
+# outside the tensor cores, used for every scalar ALU operation (integer,
+# f32 and f64 alike; the card's int32 and f64 rates are lower, so the bound
+# stays a lower bound).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -111,10 +143,30 @@ def check_equal(torch, name, a, b) -> float:
     return diff
 
 
+def check_bits(torch, name, a, b) -> None:
+    """Raise unless two f32 outputs are equal in every bit."""
+    if a is None and b is None:
+        return
+    if a is None or b is None or a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"{name}: shapes/dtypes differ")
+    if not torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)):
+        diff = (a.double() - b.double()).abs().max().item()
+        raise AssertionError(f"{name}: not bit-equal (max |diff| {diff:.3e})")
+
+
+def check_rel(torch, name, a, b, rtol) -> float:
+    """Max relative difference of two f32 sums; raises past rtol."""
+    a, b = a.double(), b.double()
+    rel = ((a - b).abs() / b.abs().clamp_min(1e-30)).max().item()
+    if not rel <= rtol:
+        raise AssertionError(f"{name}: relative difference {rel:.3e} > {rtol}")
+    return rel
+
+
 def phase_kernels(torch, device, results):
     """Phase 2: each kernel's wrapper on CUDA tensors against its plain
     version on the same tensors."""
-    from pqa2_tpu.golden.fixedpoint import ADM_BAND_Q
+    from pqa2_tpu_torch.golden.fixedpoint import ADM_BAND_Q
     from pqa2_tpu_torch.ops import cuda_adm_int, cuda_ssim, cuda_vif_int
     from pqa2_tpu_torch.ops.adm_int import adm_level_plain, level_input
     from pqa2_tpu_torch.ops.ssim import ssim_sse_plane_plain
@@ -191,7 +243,97 @@ def phase_kernels(torch, device, results):
         worst = max(worst, err)
         log(f"[kernels] ssim_sse_plane {label}: max |ssim diff| {err:.3e}, SSE equal")
     results["ssim_sse_plane"]["max_abs_err"] = worst
+    del chroma, chroma_d
+    phase_float_kernels(torch, device, results, ref, dist)
     return ref, dist
+
+
+def phase_float_kernels(torch, device, results, ref, dist):
+    """Phase 2, float family: kernels 5-7 against their plain versions on
+    the 1080p chunk and a 3840x2160 pair."""
+    from pqa2_tpu_torch.ops import cuda_adm, cuda_motion, cuda_vif
+    from pqa2_tpu_torch.ops.adm import adm_from_level_sums, adm_level_plain_float
+    from pqa2_tpu_torch.ops.motion import motion_sad_plain
+    from pqa2_tpu_torch.ops.vif import vif_ratio, vif_scale_plain
+
+    err = {k: 0.0 for k in FLOAT_KERNELS}
+
+    def vif_all_scales(r, d, m, label, gain):
+        for scale in range(4):
+            kw = dict(scale=scale, gain_limit=gain, variant="classic", emit_next=scale < 3)
+            got = cuda_vif.vif_scale(r, d, motion_ref=m if scale == 0 else None, **kw)
+            again = cuda_vif.vif_scale(r, d, motion_ref=m if scale == 0 else None, **kw)
+            want = vif_scale_plain(r, d, **kw)
+            tag = f"vif {label} gain {gain} scale {scale}"
+            for nm, a, b in (("next_ref", got[2], want[2]), ("next_dist", got[3], want[3])):
+                check_bits(torch, f"{tag} {nm}", a, b)
+            for nm, a, b in zip(("num", "den", "next_ref", "next_dist", "sad"), got, again):
+                check_bits(torch, f"{tag} {nm} (second launch)", a, b)
+            check_rel(torch, f"{tag} num", got[0], want[0], FLOAT_SUM_RTOL)
+            check_rel(torch, f"{tag} den", got[1], want[1], FLOAT_SUM_RTOL)
+            fe = (vif_ratio(got[0], got[1]) - vif_ratio(want[0], want[1])).abs().max().item()
+            if not fe <= FLOAT_FEAT_ATOL:
+                raise AssertionError(f"{tag}: feature difference {fe:.3e}")
+            err["vif_scale"] = max(err["vif_scale"], fe)
+            if got[4] is not None:
+                sp = motion_sad_plain(m)
+                check_rel(torch, f"{tag} sad", got[4][1:], sp[1:], FLOAT_SUM_RTOL)
+                if got[4][0].item() != 0.0:
+                    raise AssertionError(f"{tag}: sad of frame 0 is {got[4][0].item()}")
+                err["motion_sad"] = max(err["motion_sad"],
+                                        (got[4] - sp).abs().max().item())
+            torch.cuda.synchronize()
+            del want, again
+            r, d = got[2], got[3]
+        log(f"[kernels] vif_scale {label} classic gain {gain}: decimated planes "
+            f"bit-equal, num/den within {FLOAT_SUM_RTOL:g} rel, features within "
+            f"{FLOAT_FEAT_ATOL:g}{', motion SAD within 1e-05 rel' if m is not None else ''}, "
+            f"second launch bit-equal, all 4 scales")
+
+    def adm_all_levels(r, d, label, gain):
+        h, w = r.shape[-2:]
+        sums_k, sums_p = [], []
+        for lvl in range(4):
+            got = cuda_adm.adm_level(r, d, level=lvl, gain_limit=gain)
+            again = cuda_adm.adm_level(r, d, level=lvl, gain_limit=gain)
+            want = adm_level_plain_float(r, d, level=lvl, gain_limit=gain)
+            tag = f"adm {label} gain {gain} level {lvl}"
+            for nm, a, b in (("ref approx", got[1], want[1]), ("dist approx", got[2], want[2])):
+                check_bits(torch, f"{tag} {nm}", a, b)
+            for nm, a, b in zip(("sums", "ref approx", "dist approx"), got, again):
+                check_bits(torch, f"{tag} {nm} (second launch)", a, b)
+            check_rel(torch, f"{tag} sums", got[0], want[0], FLOAT_SUM_RTOL)
+            sums_k.append(got[0])
+            sums_p.append(want[0])
+            torch.cuda.synchronize()
+            del want, again
+            r, d = got[1], got[2]
+        fe = (adm_from_level_sums(sums_k, h, w)
+              - adm_from_level_sums(sums_p, h, w)).abs().max().item()
+        if not fe <= FLOAT_FEAT_ATOL:
+            raise AssertionError(f"adm {label} gain {gain}: adm2 difference {fe:.3e}")
+        err["adm_level"] = max(err["adm_level"], fe)
+        log(f"[kernels] adm_level {label} gain {gain}: approximation bands bit-equal, "
+            f"sums within {FLOAT_SUM_RTOL:g} rel, |adm2 diff| {fe:.3e}, second launch "
+            f"bit-equal, all 4 levels")
+
+    rf, df, mf = ref[1:33].float(), dist[1:33].float(), ref.float()
+    for gain in (float("inf"), 1.0):
+        vif_all_scales(rf, df, mf, "1080p 32+2 frames", gain)
+    for gain in (100.0, 1.0):
+        adm_all_levels(rf, df, "1080p 32 frames", gain)
+    check_bits(torch, "motion_sad (second launch)", cuda_motion.motion_sad(mf),
+               cuda_motion.motion_sad(mf))
+    del rf, df, mf
+    r1 = smooth_frames(torch, 2, 2160, 3840, 5, device)
+    d1 = distort(torch, r1, 6).float()
+    r1 = r1.float()
+    vif_all_scales(r1[1:], d1[1:], r1, "3840x2160", float("inf"))
+    vif_all_scales(r1[1:], d1[1:], None, "3840x2160", 1.0)
+    adm_all_levels(r1[1:], d1[1:], "3840x2160", 100.0)
+    del r1, d1
+    for k, v in err.items():
+        results[k]["max_abs_err"] = v
 
 
 def time_call(torch, fn, reps):
@@ -207,13 +349,61 @@ def time_call(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes: float, nops: float):
+    """(least ms, what bounds it): the larger of bytes over the memory rate
+    and operations over the scalar rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = nops / PEAK_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def work(name, n, h, w, m=0):
+    """(bytes moved, operations) of one timed call, from its shapes: each
+    input read once, each output written once; operations counted per pixel
+    as the algorithm needs them (a multiply and an add per filter tap)."""
+    p = n * h * w
+    b2 = n * ((h + 1) // 2) * ((w + 1) // 2)
+    blur5 = 2 * (2 * 5)                 # 5-tap column + row pass, per pixel
+    # Next scale's 9-tap blur of 2 planes at the kept pixels: the column
+    # pass at the even rows of every column, then the row pass at the even
+    # columns.
+    dec9 = 2 * b2 * (2 * 2 * 9 + 2 * 9)
+    if name == "vif_int_scale":         # scale 0 (17 taps) + decimation (9) + motion
+        return ((2 * p + m * h * w) * 4 + 2 * b2 * 4 + n * 7 * 8 + (m - 1) * 8,
+                p * (20 * 17 + 3 + 40) + dec9 + m * h * w * blur5
+                + (m - 1) * h * w * 3)
+    if name == "log2_table_audit":      # 32768 mantissas x 2 lookups
+        return 32768 * 4 + 65536 * 4, 65536 * 12
+    if name in ("adm_int_level", "adm_level"):  # level 0: DWT of 2 planes + pooling
+        return 2 * p * 4 + 2 * b2 * 4 + n * 6 * 8, 2 * b2 * 96 + b2 * 110
+    if name == "ssim_sse_plane":
+        return 2 * p * 4 + n * 12, p * 13
+    if name == "vif_scale":             # scale 0 (17 taps) + next scale's 9 taps
+        return 2 * p * 4 + 2 * b2 * 4 + n * 8, p * (20 * 17 + 28) + dec9
+    if name == "motion_sad":            # every frame blurred once, n-1 differences
+        return p * 4 + n * 4, p * blur5 + (n - 1) * h * w * 3
+    raise KeyError(name)
+
+
 def phase_times(torch, device, results, ref, dist, card):
-    """Phase 4a: each kernel against its plain version at 1080p, CUDA events."""
-    from pqa2_tpu_torch.ops import cuda_adm_int, cuda_ssim, cuda_vif_int
+    """Phase 4a: each kernel against its plain version at 1080p, CUDA events,
+    and its bound."""
+    from pqa2_tpu_torch.ops import (
+        cuda_adm,
+        cuda_adm_int,
+        cuda_motion,
+        cuda_ssim,
+        cuda_vif,
+        cuda_vif_int,
+    )
+    from pqa2_tpu_torch.ops.adm import adm_level_plain_float
     from pqa2_tpu_torch.ops.adm_int import adm_level_plain, level_input
+    from pqa2_tpu_torch.ops.motion import motion_sad_plain
     from pqa2_tpu_torch.ops.ssim import ssim_sse_plane_plain
+    from pqa2_tpu_torch.ops.vif import vif_scale_plain
     from pqa2_tpu_torch.ops.vif_int import to_native_grid, vif_int_scale_plain
 
+    n, h, w = 32, ref.shape[1], ref.shape[2]
     r = to_native_grid(ref[1:33], 8)[0]
     d = to_native_grid(dist[1:33], 8)[0]
     m = to_native_grid(ref, 8)[0]
@@ -221,33 +411,46 @@ def phase_times(torch, device, results, ref, dist, card):
     ra, _ = level_input(ref[1:33], 8)
     da, _ = level_input(dist[1:33], 8)
     akw = dict(level=0, extra_row_shift=0, gain_limit=100.0)
-    rl, dl = ref[1:33].float(), dist[1:33].float()
+    rl, dl, ml = ref[1:33].float(), dist[1:33].float(), ref.float()
+    fkw = dict(scale=0, gain_limit=float("inf"), variant="classic", emit_next=True)
     cases = {
         "vif_int_scale": (lambda: cuda_vif_int.vif_int_scale(r, d, **kw),
                           lambda: vif_int_scale_plain(r, d, **kw),
-                          "scale 0, 32 core frames + motion over 34, 1080p"),
+                          "scale 0, 32 core frames + motion over 34, 1080p",
+                          work("vif_int_scale", n, h, w, m=34)),
         "log2_table_audit": (lambda: cuda_vif_int.log2_table_audit(device),
                              lambda: cuda_vif_int._audit_plain(device),
-                             "32768 mantissas x 2"),
+                             "32768 mantissas x 2", work("log2_table_audit", 0, 0, 0)),
         "adm_int_level": (lambda: cuda_adm_int.adm_int_level(ra, da, **akw),
                           lambda: adm_level_plain(ra, da, **akw),
-                          "level 0, 32 frames, 1080p"),
+                          "level 0, 32 frames, 1080p", work("adm_int_level", n, h, w)),
         "ssim_sse_plane": (lambda: cuda_ssim.ssim_sse_plane(rl, dl, 8),
                            lambda: ssim_sse_plane_plain(rl, dl, 8),
-                           "32 frames, 1080p luma"),
+                           "32 frames, 1080p luma", work("ssim_sse_plane", n, h, w)),
+        "vif_scale": (lambda: cuda_vif.vif_scale(rl, dl, **fkw),
+                      lambda: vif_scale_plain(rl, dl, **fkw),
+                      "scale 0 classic + next scale's planes, 32 frames, 1080p",
+                      work("vif_scale", n, h, w)),
+        "adm_level": (lambda: cuda_adm.adm_level(rl, dl, level=0, gain_limit=100.0),
+                      lambda: adm_level_plain_float(rl, dl, level=0, gain_limit=100.0),
+                      "level 0, 32 frames, 1080p", work("adm_level", n, h, w)),
+        "motion_sad": (lambda: cuda_motion.motion_sad(ml),
+                       lambda: motion_sad_plain(ml),
+                       "34 frames (32 + both halos), 1080p", work("motion_sad", 34, h, w)),
     }
-    for name, (kern, plain, what) in cases.items():
+    for name, (kern, plain, what, (nbytes, nops)) in cases.items():
         k_ms = time_call(torch, kern, 10)
         p_ms = time_call(torch, plain, 3)
-        results[name]["ms"] = k_ms
-        results[name]["plain_ms"] = p_ms
-        log(f"[times] {name} ({what}): kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
+        b_ms, by = bound(nbytes, nops)
+        results[name].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by)
+        log(f"[times] {name} ({what}): kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+            f"bound {b_ms:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, {nops / 1e9:.2f} G ops) "
             f"[{card}]")
 
 
 def write_pair(n, h, w, ref_path, dist_path, torch, device):
-    """Synthetic 8-bit 4:2:0 y4m pair (pqa2_tpu.io.write_y4m)."""
-    from pqa2_tpu.io import write_y4m
+    """Synthetic 8-bit 4:2:0 y4m pair (pqa2_tpu_torch.io.y4m.write_y4m)."""
+    from pqa2_tpu_torch.io.y4m import write_y4m
 
     ref = smooth_frames(torch, n, h, w, 11, device)
     dist = distort(torch, ref, 12, radius=3, noise=16)
@@ -263,47 +466,42 @@ def write_pair(n, h, w, ref_path, dist_path, torch, device):
     return ry, dy
 
 
-def phase_slice(torch, device, results, card, profile_dir=None):
-    """Phase 3 (+ 4b): the main path end to end, then the oracle checks."""
+def kernel_wrappers():
+    from pqa2_tpu_torch.ops import (
+        cuda_adm,
+        cuda_adm_int,
+        cuda_motion,
+        cuda_ssim,
+        cuda_vif,
+        cuda_vif_int,
+    )
+
+    return {"vif_int_scale": cuda_vif_int.vif_int_scale,
+            "log2_table_audit": cuda_vif_int.log2_table_audit,
+            "adm_int_level": cuda_adm_int.adm_int_level,
+            "ssim_sse_plane": cuda_ssim.ssim_sse_plane,
+            "vif_scale": cuda_vif.vif_scale,
+            "adm_level": cuda_adm.adm_level,
+            "motion_sad": cuda_motion.motion_sad}
+
+
+def run_slice(torch, analyzer, ref_path, dist_path, model, n):
+    """One main-path run with every launch count set to 0 just before it and
+    read just after; checks its artifacts. Returns (results dict, seconds,
+    launch counts)."""
     import numpy as np
 
-    from pqa2_tpu.golden.adm_int import adm_features_int
-    from pqa2_tpu.golden.motion_int import motion_features_int
-    from pqa2_tpu.golden.vif_int import vif_features_int
-    from pqa2_tpu_torch.app.vmaf_analyzer import VMAFAnalyzer
-    from pqa2_tpu_torch.ops import cuda_adm_int, cuda_ssim, cuda_vif_int
-
-    os.makedirs(WORK_DIR, exist_ok=True)
-    ref_path = os.path.join(WORK_DIR, "ref_1080p.y4m")
-    dist_path = os.path.join(WORK_DIR, "dist_1080p.y4m")
-    n = 72
-    ry, dy = write_pair(n, 1080, 1920, ref_path, dist_path, torch, device)
-    log(f"[slice] wrote {n}-frame 1920x1080 4:2:0 y4m pair")
-
-    wrappers = {"vif_int_scale": cuda_vif_int.vif_int_scale,
-                "log2_table_audit": cuda_vif_int.log2_table_audit,
-                "adm_int_level": cuda_adm_int.adm_int_level,
-                "ssim_sse_plane": cuda_ssim.ssim_sse_plane}
-    analyzer = VMAFAnalyzer(device="cuda")
-    analyzer.set_output_directory(os.path.join(WORK_DIR, "out"))
-    analyzer.set_test_name("smoke")
-    failures = []
-    analyzer.analysis_failed.connect(failures.append)
-    for w in wrappers.values():
-        w.launches = 0
+    ws = kernel_wrappers()
+    for wr in ws.values():
+        wr.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = analyzer.analyze_videos(ref_path, dist_path, model="vmaf_v0.6.1")
+    res = analyzer.analyze_videos(ref_path, dist_path, model=model)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    counts = {k: w.launches for k, w in wrappers.items()}
+    counts = {k: wr.launches for k, wr in ws.items()}
     if res is None:
-        raise AssertionError(f"analyze_videos failed: {failures}")
-    for k, c in counts.items():
-        results[k]["launches"] = c
-        if c <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the main path")
-    log(f"[slice] launches on the main path: {counts}")
+        raise AssertionError(f"analyze_videos({model}) failed")
 
     keys = {"vmaf_score", "psnr_score", "ssim_score", "json_path", "psnr_log",
             "ssim_log", "reference_video", "distorted_video", "reference_path",
@@ -313,6 +511,8 @@ def phase_slice(torch, device, results, card, profile_dir=None):
         raise AssertionError(f"results keys differ: {sorted(set(res) ^ keys)}")
     if res["frame_count"] != n or (res["width"], res["height"]) != (1920, 1080):
         raise AssertionError(f"bad geometry/frames in results: {res['frame_count']}")
+    if res["model"] != model:
+        raise AssertionError(f"results name model {res['model']}, not {model}")
     with open(res["json_path"]) as f:
         log_json = json.load(f)
     frames = log_json["frames"]
@@ -331,50 +531,120 @@ def phase_slice(torch, device, results, card, profile_dir=None):
             lines = f.read().splitlines()
         if len(lines) != n + 1 or "average" not in lines[-1]:
             raise AssertionError(f"{path}: {len(lines)} lines")
-    log(f"[slice] vmaf {res['vmaf_score']:.4f} (per frame {vmaf.min():.3f}..{vmaf.max():.3f}), "
-        f"psnr {res['psnr_score']:.4f} dB, ssim {res['ssim_score']:.6f}; "
-        f"artifacts checked")
+    log(f"[slice] {model}: vmaf {res['vmaf_score']:.4f} (per frame "
+        f"{vmaf.min():.3f}..{vmaf.max():.3f}), psnr {res['psnr_score']:.4f} dB, "
+        f"ssim {res['ssim_score']:.6f}; artifacts checked")
+    log(f"[slice] {model}: launches on the main path: {counts}")
+    return res, elapsed, counts
 
-    # Frames 0 and 32 (a chunk boundary) against the numpy oracles, on the
-    # unrounded features of the run (the JSON rounds to 6 decimals).
-    scores_feats = analyzer.last_scores.features
-    for i in (0, 32):
-        vo = np.array(vif_features_int(ry[i], dy[i]))
-        ao = adm_features_int(ry[i], dy[i])[0]
-        vp = np.array([scores_feats[f"vif_scale{s}"][i] for s in range(4)])
-        if np.max(np.abs(vp - vo)) > VIF_ATOL:
-            raise AssertionError(f"frame {i} vif {vp} vs oracle {vo}")
-        if abs(scores_feats["adm2"][i] - ao) > ADM_ATOL:
-            raise AssertionError(f"frame {i} adm2 {scores_feats['adm2'][i]} vs oracle {ao}")
-        log(f"[oracle] frame {i}: max |vif - oracle| {np.max(np.abs(vp - vo)):.3e}, "
-            f"|adm2 - oracle| {abs(scores_feats['adm2'][i] - ao):.3e}")
-    mo, m2o = motion_features_int(ry[31:34])
-    for nm, want in (("motion", mo[1]), ("motion2", m2o[1])):
-        got = scores_feats[nm][32]
-        if abs(got - want) > MOTION_RTOL * abs(want):
-            raise AssertionError(f"frame 32 {nm} {got} vs oracle {want}")
-    log(f"[oracle] frame 32: motion {scores_feats['motion'][32]:.6f} "
-        f"(oracle {mo[1]:.6f}), motion2 {scores_feats['motion2'][32]:.6f} "
-        f"(oracle {m2o[1]:.6f})")
 
-    # Phase 4b: a second, warm run of the same call for the frame rate.
+def warm_run(torch, analyzer, ref_path, dist_path, model, first, n, card, profile_dir):
+    """Phase 4b: a second, warm run of the same call for the frame rate (and,
+    with --profile, one more under torch.profiler)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res2 = analyzer.analyze_videos(ref_path, dist_path, model="vmaf_v0.6.1")
+    res2 = analyzer.analyze_videos(ref_path, dist_path, model=model)
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
+    if res2 is None or abs(res2["vmaf_score"] - first[0]["vmaf_score"]) > 0:
+        raise AssertionError(f"{model}: second run differs from the first")
     if profile_dir:
-        profile_run(torch, lambda: analyzer.analyze_videos(ref_path, dist_path),
-                    profile_dir, card)
-    if res2 is None or abs(res2["vmaf_score"] - res["vmaf_score"]) > 0:
-        raise AssertionError("second run differs from the first")
-    log(f"[times] slice 1080p vmaf_v0.6.1+PSNR+SSIM, {n} frames: first run "
+        profile_run(torch, lambda: analyzer.analyze_videos(ref_path, dist_path, model=model),
+                    profile_dir, card, model)
+    elapsed = first[1]
+    log(f"[times] slice 1080p {model}+PSNR+SSIM, {n} frames: first run "
         f"{elapsed:.3f} s ({n / elapsed:.2f} fps), warm run {warm:.3f} s "
         f"({n / warm:.2f} fps) [{card}]")
 
 
-def profile_run(torch, run, out_dir, card):
-    """torch.profiler over one more warm run of the slice: device busy time
+def phase_slice(torch, device, results, card, profile_dir=None):
+    """Phase 3 (+ 4b): both main paths end to end, then the oracle checks."""
+    import numpy as np
+
+    from pqa2_tpu_torch.app.vmaf_analyzer import VMAFAnalyzer
+    from pqa2_tpu_torch.golden.adm import adm_features
+    from pqa2_tpu_torch.golden.adm_int import adm_features_int
+    from pqa2_tpu_torch.golden.motion import motion_features
+    from pqa2_tpu_torch.golden.motion_int import motion_features_int
+    from pqa2_tpu_torch.golden.vif import vif_features
+    from pqa2_tpu_torch.golden.vif_int import vif_features_int
+
+    os.makedirs(WORK_DIR, exist_ok=True)
+    ref_path = os.path.join(WORK_DIR, "ref_1080p.y4m")
+    dist_path = os.path.join(WORK_DIR, "dist_1080p.y4m")
+    n = 72
+    ry, dy = write_pair(n, 1080, 1920, ref_path, dist_path, torch, device)
+    log(f"[slice] wrote {n}-frame 1920x1080 4:2:0 y4m pair")
+
+    analyzer = VMAFAnalyzer(device="cuda")
+    analyzer.set_output_directory(os.path.join(WORK_DIR, "out"))
+    analyzer.set_test_name("smoke")
+
+    # The integer family: vmaf_v0.6.1 runs kernels 1-4.
+    model = "vmaf_v0.6.1"
+    first = run_slice(torch, analyzer, ref_path, dist_path, model, n)
+    counts = first[2]
+    for k in KERNELS:
+        if k not in FLOAT_KERNELS:
+            results[k]["launches"] = counts[k]
+            if counts[k] <= 0:
+                raise AssertionError(f"kernel {k} was not launched on the integer path")
+
+    # Frames 0 and 32 (a chunk boundary) against the numpy oracles, on the
+    # unrounded features of the run (the JSON rounds to 6 decimals).
+    feats = analyzer.last_scores.features
+    for i in (0, 32):
+        vo = np.array(vif_features_int(ry[i], dy[i]))
+        ao = adm_features_int(ry[i], dy[i])[0]
+        vp = np.array([feats[f"vif_scale{s}"][i] for s in range(4)])
+        if np.max(np.abs(vp - vo)) > VIF_ATOL:
+            raise AssertionError(f"frame {i} vif {vp} vs oracle {vo}")
+        if abs(feats["adm2"][i] - ao) > ADM_ATOL:
+            raise AssertionError(f"frame {i} adm2 {feats['adm2'][i]} vs oracle {ao}")
+        log(f"[oracle] {model} frame {i}: max |vif - oracle| "
+            f"{np.max(np.abs(vp - vo)):.3e}, |adm2 - oracle| {abs(feats['adm2'][i] - ao):.3e}")
+    mo, m2o = motion_features_int(ry[31:34])
+    for nm, want in (("motion", mo[1]), ("motion2", m2o[1])):
+        got = feats[nm][32]
+        if abs(got - want) > MOTION_RTOL * abs(want):
+            raise AssertionError(f"frame 32 {nm} {got} vs oracle {want}")
+    log(f"[oracle] {model} frame 32: motion {feats['motion'][32]:.6f} "
+        f"(oracle {mo[1]:.6f}), motion2 {feats['motion2'][32]:.6f} (oracle {m2o[1]:.6f})")
+    warm_run(torch, analyzer, ref_path, dist_path, model, first, n, card, profile_dir)
+
+    # The float family: vmaf_float_v0.6.1 runs kernels 4-7 and none of 1-3.
+    model = "vmaf_float_v0.6.1"
+    first = run_slice(torch, analyzer, ref_path, dist_path, model, n)
+    counts = first[2]
+    for k in FLOAT_KERNELS:
+        results[k]["launches"] = counts[k]
+        if counts[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the float path")
+    if any(counts[k] for k in INTEGER_KERNELS) or counts["ssim_sse_plane"] <= 0:
+        raise AssertionError(f"the float path launched the wrong kernels: {counts}")
+    feats = analyzer.last_scores.features
+    for i in (0, 32):
+        vo = np.array(vif_features(ry[i], dy[i], variant="classic"))
+        ao = adm_features(ry[i], dy[i])[0]
+        vp = np.array([feats[f"vif_scale{s}"][i] for s in range(4)])
+        if np.max(np.abs(vp - vo)) > FLOAT_VIF_ATOL:
+            raise AssertionError(f"{model} frame {i} vif {vp} vs oracle {vo}")
+        if abs(feats["adm2"][i] - ao) > FLOAT_ADM_ATOL:
+            raise AssertionError(f"{model} frame {i} adm2 {feats['adm2'][i]} vs oracle {ao}")
+        log(f"[oracle] {model} frame {i}: max |vif - oracle| {np.max(np.abs(vp - vo)):.3e}, "
+            f"|adm2 - oracle| {abs(feats['adm2'][i] - ao):.3e}")
+    mo, m2o = motion_features(ry[31:34].astype(np.float64))
+    for nm, want in (("motion", mo[1]), ("motion2", m2o[1])):
+        got = feats[nm][32]
+        if abs(got - want) > FLOAT_MOTION_ATOL:
+            raise AssertionError(f"{model} frame 32 {nm} {got} vs oracle {want}")
+    log(f"[oracle] {model} frame 32: motion {feats['motion'][32]:.6f} (oracle "
+        f"{mo[1]:.6f}), motion2 {feats['motion2'][32]:.6f} (oracle {m2o[1]:.6f})")
+    warm_run(torch, analyzer, ref_path, dist_path, model, first, n, card, profile_dir)
+
+
+def profile_run(torch, run, out_dir, card, label):
+    """torch.profiler over one more warm run of a slice: device busy time
     against wall time, and the kernel table, written to ``out_dir``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -392,22 +662,22 @@ def profile_run(torch, run, out_dir, card):
             busy_us[e.name] = busy_us.get(e.name, 0.0) + e.time_range.elapsed_us()
     total = sum(busy_us.values()) / 1e3
     table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40)
-    with open(os.path.join(out_dir, "slice_profile.txt"), "w") as f:
-        f.write(f"{card}\nwall {wall * 1e3:.3f} ms, device busy {total:.3f} ms\n\n")
+    with open(os.path.join(out_dir, f"slice_profile_{label}.txt"), "w") as f:
+        f.write(f"{card}\n{label}: wall {wall * 1e3:.3f} ms, device busy {total:.3f} ms\n\n")
         for name, us in sorted(busy_us.items(), key=lambda kv: -kv[1]):
             f.write(f"{us / 1e3:10.3f} ms  {name}\n")
         f.write("\n" + table)
-    log(f"[profile] slice warm run under torch.profiler: wall {wall * 1e3:.3f} ms, "
+    log(f"[profile] {label} slice warm run under torch.profiler: wall {wall * 1e3:.3f} ms, "
         f"device busy {total:.3f} ms ({100.0 * (1 - total / (wall * 1e3)):.1f} % idle) "
         f"[{card}]")
-    for name, us in sorted(busy_us.items(), key=lambda kv: -kv[1])[:8]:
+    for name, us in sorted(busy_us.items(), key=lambda kv: -kv[1])[:10]:
         log(f"[profile]   {us / 1e3:9.3f} ms  {name[:90]}")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="also profile one warm slice run; tables go to DIR")
+                    help="also profile one warm run of each slice; tables go to DIR")
     args = ap.parse_args(argv)
 
     import torch
@@ -431,11 +701,12 @@ def main(argv=None) -> int:
     log_path = _build.BUILD_DIR / "build.log"
     if log_path.exists():
         for line in log_path.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[build] {line.strip()}")
 
     results = {k: {"name": k, "route": "cuda", "source": src, "replaces": rep,
-                   "launches": 0, "max_abs_err": None, "ms": None, "plain_ms": None}
+                   "launches": 0, "max_abs_err": None, "ms": None, "plain_ms": None,
+                   "bound_ms": None, "bound_by": None, "library_ms": None}
                for k, (src, rep) in KERNELS.items()}
     ref, dist = phase_kernels(torch, device, results)
     phase_times(torch, device, results, ref, dist, card)

@@ -2,9 +2,10 @@
 
 All ``csrc/*.cu`` files are compiled on first use into one shared library
 with a plain C interface, ``build/pqa2_tpu_torch/libpqa2_kernels.so`` at the
-repository root, and loaded with ctypes. The build key is a hash of the
-sources and the flags: a change to either rebuilds, an unchanged tree loads
-the existing library.
+repository root, and loaded with ctypes: one nvcc process per source, all
+started together, then one link. The build key is a hash of the sources and
+the flags: a change to either rebuilds, an unchanged tree loads the
+existing library.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 --fmad=false``. ``--fmad=false`` keeps every ``a*b+c`` as two roundings:
@@ -38,7 +39,7 @@ LIB_NAME = "libpqa2_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -86,16 +87,33 @@ def build() -> Path:
     if lib_path.exists() and key_path.exists() and key_path.read_text() == key:
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
+    jobs = []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(out)
+    tmp = BUILD_DIR / f"{LIB_NAME}.{tag}"
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(proc.stderr)
+    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed)[-8000:])
     os.replace(tmp, lib_path)
     key_path.write_text(key)
     build_seconds = time.perf_counter() - t0

@@ -19,9 +19,9 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 
-from pqa2_tpu.io.video import probe_video
-from pqa2_tpu.utils.profiling import ThroughputMeter
-from pqa2_tpu.utils.signals import Signal
+from pqa2_tpu_torch.io.video import probe_video
+from pqa2_tpu_torch.utils.profiling import ThroughputMeter
+from pqa2_tpu_torch.utils.signals import Signal
 from pqa2_tpu_torch.pipeline.json_out import write_vmaf_json
 from pqa2_tpu_torch.pipeline.scoring import ClipScores, pool_metric
 from pqa2_tpu_torch.pipeline.streaming import stream_score

@@ -1,6 +1,7 @@
 // Shared helpers of the pqa2_tpu_torch kernels (border indexing, block
-// reductions). Plain C interface: each launcher is extern "C", returns
-// cudaGetLastError(), launches on the stream it is given, allocates nothing.
+// reductions, the fixed-order second pass of the float kernels). Plain C
+// interface: each launcher is extern "C", returns cudaGetLastError(),
+// launches on the stream it is given, allocates nothing.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -83,6 +84,40 @@ __device__ inline double block_sum(double v) {
   }
   __syncthreads();
   return s;
+}
+
+// K per-block double partials of one block -> part[(n * nblocks + b) * K
+// + k], written by thread 0. Every thread must call it.
+template <int K>
+__device__ void block_partials(const double (&v)[K], double* part) {
+  const size_t slot = (static_cast<size_t>(blockIdx.z) * gridDim.x * gridDim.y +
+                       static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) * K;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const double s = block_sum(v[k]);
+    if (threadIdx.x == 0) part[slot + k] = s;
+  }
+}
+
+// The fixed-order second pass of the float kernels: one block per frame
+// adds that frame's per-block partials (layout of block_partials) in the
+// same order on every run — no float atomics, so two runs give the same
+// bits — and rounds each total to f32 once: out[n * K + k]. (A template,
+// so each source that launches it gets its own instance; a nested
+// anonymous namespace here would clash with the sources' own.)
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+finish_partials_kernel(const double* __restrict__ part, int nblocks,
+                       float* __restrict__ out) {
+  const int n = blockIdx.x;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    double a = 0.0;
+    for (int i = threadIdx.x; i < nblocks; i += kThreads)
+      a += part[(static_cast<size_t>(n) * nblocks + i) * K + k];
+    a = block_sum(a);
+    if (threadIdx.x == 0) out[static_cast<size_t>(n) * K + k] = static_cast<float>(a);
+  }
 }
 
 }  // namespace pqa2

@@ -5,9 +5,10 @@
   raw   = K @ coef - rho                    f32 product + reduction
   score = inverse rescale -> score_transform -> clip
 
-The weights come from a ``pqa2_tpu.models.loader`` model through
-:func:`svr_state_from_model`, so the JAX predictor and this module are fed
-the same numbers. A bootstrap ensemble is one padded batch of M sub-models
+The weights come from a loader model through :func:`svr_state_from_model`,
+which is duck-typed: it takes a ``pqa2_tpu_torch.models.loader`` model and a
+``pqa2_tpu.models.loader`` one alike, so the JAX predictor and this module
+can be fed the same numbers. A bootstrap ensemble is one padded batch of M sub-models
 (zero coefficients on padded support vectors contribute nothing).
 
 Trap 10 (precision): the squared distances are direct ``(x - sv)^2``
@@ -18,16 +19,19 @@ elementwise product and sum, never a TF32 matmul: the inverse rescale
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from pqa2_tpu.models.loader import BootstrapModel, VMAFModel
+
+def _is_bootstrap(model) -> bool:
+    """A bootstrap ensemble carries its sub-models in ``.models``."""
+    return hasattr(model, "models")
 
 
-def svr_state_from_model(model: Union[VMAFModel, BootstrapModel]) -> Dict[str, object]:
+def svr_state_from_model(model) -> Dict[str, object]:
     """A loader model's numpy arrays -> the predictor's state.
 
     Array entries carry a leading sub-model axis M (1 for a single model):
@@ -35,7 +39,7 @@ def svr_state_from_model(model: Union[VMAFModel, BootstrapModel]) -> Dict[str, o
     ``intercepts`` (M, F+1), ``gamma`` and ``rho`` (M,), all float64;
     ``score_transform`` is (p0, p1, p2, out_gte_in) or None and
     ``score_clip`` (lo, hi) or None, both from sub-model 0."""
-    models = model.models if isinstance(model, BootstrapModel) else (model,)
+    models = tuple(model.models) if _is_bootstrap(model) else (model,)
     n_sv = max(m.n_sv for m in models)
     f = models[0].n_features
     sv = np.zeros((len(models), n_sv, f), dtype=np.float64)
@@ -112,7 +116,7 @@ class BootstrapPredictor(ScorePredictor):
         return scores[0], scores
 
 
-def predictor_for_model(model: Union[VMAFModel, BootstrapModel], device="cpu") -> ScorePredictor:
+def predictor_for_model(model, device="cpu") -> ScorePredictor:
     """The predictor module for a loader model, on ``device``."""
-    cls = BootstrapPredictor if isinstance(model, BootstrapModel) else ScorePredictor
+    cls = BootstrapPredictor if _is_bootstrap(model) else ScorePredictor
     return cls(svr_state_from_model(model), device=device)

@@ -29,9 +29,9 @@ from typing import Callable, Dict, Tuple
 import numpy as np
 import torch
 
-from pqa2_tpu.golden.adm import COS_1DEG_SQ, NUM_LEVELS
-from pqa2_tpu.golden.filters import symmetric_index
-from pqa2_tpu.golden.fixedpoint import (
+from pqa2_tpu_torch.golden.adm import COS_1DEG_SQ, NUM_LEVELS
+from pqa2_tpu_torch.golden.filters import symmetric_index
+from pqa2_tpu_torch.golden.fixedpoint import (
     ADM_BAND_Q,
     ADM_CSF_SHIFT,
     ADM_TAIL_TABLES,

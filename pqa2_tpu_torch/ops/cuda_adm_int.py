@@ -23,8 +23,8 @@ import ctypes
 import numpy as np
 import torch
 
-from pqa2_tpu.golden.adm import COS_1DEG_SQ
-from pqa2_tpu.golden.fixedpoint import ADM_TAIL_TABLES, DB2_HI_Q15, DB2_LO_Q15
+from pqa2_tpu_torch.golden.adm import COS_1DEG_SQ
+from pqa2_tpu_torch.golden.fixedpoint import ADM_TAIL_TABLES, DB2_HI_Q15, DB2_LO_Q15
 from pqa2_tpu_torch import _build
 from pqa2_tpu_torch.ops.adm_int import (
     adm_cascade,

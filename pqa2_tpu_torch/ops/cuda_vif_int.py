@@ -26,13 +26,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pqa2_tpu.golden.fixedpoint import (
+from pqa2_tpu_torch.golden.fixedpoint import (
     MOTION_FILTER_Q16,
     SIGMA_NSQ_Q16,
     VIF_FILTERS_Q16,
 )
-from pqa2_tpu.golden.log2lut import log2_table
-from pqa2_tpu.golden.vif_int import VIF_INT_EPS
+from pqa2_tpu_torch.golden.log2lut import log2_table
+from pqa2_tpu_torch.golden.vif_int import VIF_INT_EPS
 from pqa2_tpu_torch import _build
 from pqa2_tpu_torch._device import require_cuda
 from pqa2_tpu_torch.ops.vif_int import (
@@ -55,11 +55,12 @@ _AUDIT_ARGS = [_P, _P, _P]
 _TAPS = {}
 
 
-def _taps(device: torch.device, key, values) -> torch.Tensor:
-    """A Q16 filter table from pqa2_tpu.golden, uploaded once per device."""
-    k = (str(device), key)
+def _taps(device: torch.device, key, values, dtype=np.int32) -> torch.Tensor:
+    """A filter table from pqa2_tpu_torch.golden (Q16 int32, or f32 for the
+    float kernels), uploaded once per device."""
+    k = (str(device), key, np.dtype(dtype).name)
     if k not in _TAPS:
-        _TAPS[k] = torch.as_tensor(np.asarray(values, dtype=np.int32), device=device)
+        _TAPS[k] = torch.as_tensor(np.asarray(values, dtype=dtype), device=device)
     return _TAPS[k]
 
 

@@ -1,7 +1,7 @@
 """Integer fixed-point motion — the plain PyTorch version.
 
-Counterpart of ``pqa2_tpu/ops/motion_int.py`` plus the halo semantics of
-``pqa2_tpu/ops/motion.py:features_from_sad_prev``. The blur follows
+Counterpart of ``pqa2_tpu/ops/motion_int.py``; the halo semantics are
+:func:`pqa2_tpu_torch.ops.motion.features_from_sad_prev`. The blur follows
 ``pqa2_tpu/golden/motion_int.py``: Q16 5-tap window, vertical
 ``>> (8 + in_q)``, horizontal ``>> 16``, reflect borders, Q8 planes. The
 SAD between consecutive blurred frames is an exact int64; it is the value
@@ -15,7 +15,8 @@ from typing import Tuple
 
 import torch
 
-from pqa2_tpu.golden.fixedpoint import MOTION_FILTER_Q16
+from pqa2_tpu_torch.golden.fixedpoint import MOTION_FILTER_Q16
+from pqa2_tpu_torch.ops.motion import features_from_sad_prev
 from pqa2_tpu_torch.ops.vif_int import _filt, to_native_grid
 
 
@@ -37,39 +38,6 @@ def motion_from_sad(sad: torch.Tensor, h: int, w: int) -> torch.Tensor:
     Evaluated in float64 and rounded once (the oracle's value; the JAX
     package's f32 hi/lo fold differs by ~6e-8 relative)."""
     return (sad.double() / (w * h * 256.0)).float()
-
-
-def features_from_sad_prev(
-    sad_prev: torch.Tensor,
-    n: int,
-    has_prev: bool = False,
-    has_next: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(n-1,) consecutive-frame SADs -> (motion, motion2) for core frames
-    (pqa2_tpu/ops/motion.py:55, same halo contract).
-
-    With halos, ``n`` counts the extra leading frame (has_prev) and the
-    extra trailing frame (has_next); at a true clip start motion = 0 and
-    motion2 = 0, at a true clip end the forward term is absent."""
-    lead = 1 if has_prev else 0
-    if has_prev:
-        motion = sad_prev[lead - 1: (n - 2 if has_next else n - 1)]
-    else:
-        motion = torch.cat([torch.zeros(1, dtype=sad_prev.dtype,
-                                        device=sad_prev.device),
-                            sad_prev[: n - 2 if has_next else n - 1]])
-    n_core = n - lead - (1 if has_next else 0)
-    fwd_valid = n_core - (0 if has_next else 1)
-    fwd = sad_prev[lead: lead + max(fwd_valid, 0)]
-    if fwd_valid < n_core:
-        fwd = torch.cat([fwd, torch.full((n_core - fwd_valid,), float("inf"),
-                                         dtype=sad_prev.dtype,
-                                         device=sad_prev.device)])
-    motion2 = torch.minimum(motion, fwd)
-    if not has_prev:
-        motion2 = motion2.clone()
-        motion2[0] = 0.0
-    return motion, motion2
 
 
 def motion_features_int(

@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pqa2_tpu.golden.ssim import ssim_constants
+from pqa2_tpu_torch.golden.ssim import ssim_constants
 from pqa2_tpu_torch.ops.psnr import _sse
 
 

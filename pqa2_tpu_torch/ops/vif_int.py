@@ -28,10 +28,10 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from pqa2_tpu.golden.filters import reflect_index
-from pqa2_tpu.golden.fixedpoint import SIGMA_NSQ_Q16, VIF_FILTERS_Q16
-from pqa2_tpu.golden.log2lut import log2_table
-from pqa2_tpu.golden.vif_int import VIF_INT_EPS
+from pqa2_tpu_torch.golden.filters import reflect_index
+from pqa2_tpu_torch.golden.fixedpoint import SIGMA_NSQ_Q16, VIF_FILTERS_Q16
+from pqa2_tpu_torch.golden.log2lut import log2_table
+from pqa2_tpu_torch.golden.vif_int import VIF_INT_EPS
 
 #: Per-frame integer accumulators of one scale, in this order.
 STATS = ("num_tab", "num_k", "den_tab", "den_k", "n_log", "flat_hi", "flat_lo")

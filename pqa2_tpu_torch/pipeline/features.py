@@ -1,11 +1,19 @@
 """Per-chunk feature extraction (port of pqa2_tpu/pipeline/features.py).
 
-The integer family only — the one every integer-trained model (the default
-``vmaf_v0.6.1`` among them) selects: integer VIF over four scales with the
-motion SAD fused into scale 0 (``ops/cuda_vif_int.py``), integer ADM2 over
-four db2 levels (``ops/cuda_adm_int.py``), then motion/motion2 from the
-SADs. On CUDA tensors those run the hand-written kernels, on CPU tensors
-their plain versions.
+Two feature families, chosen by the model (:func:`resolve_precision`):
+
+  * integer — every integer-trained model (the default ``vmaf_v0.6.1``
+    among them): integer VIF over four scales with the motion SAD fused
+    into scale 0 (``ops/cuda_vif_int.py``), integer ADM2 over four db2
+    levels (``ops/cuda_adm_int.py``);
+  * float — the float-trained models (``vmaf_float_v0.6.1``, its NEG and
+    4K variants, the bootstrap ``vmaf_float_b_v0.6.3``): f32 VIF over four
+    scales with the ``classic`` statistic (``ops/cuda_vif.py``), whose
+    scale-0 call also launches the motion SAD (``ops/cuda_motion.py``), and
+    f32 ADM2 over four levels (``ops/cuda_adm.py``);
+
+then motion/motion2 from the SADs. On CUDA tensors those run the
+hand-written kernels, on CPU tensors their plain versions.
 
 Halo contract (as the JAX package; trap 9): motion2 needs frames t-1 and
 t+1, so a chunk that continues a clip carries one extra frame on each side
@@ -22,9 +30,12 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from pqa2_tpu_torch.ops.cuda_adm import adm_features
 from pqa2_tpu_torch.ops.cuda_adm_int import adm_features_int
+from pqa2_tpu_torch.ops.cuda_vif import vif_features
 from pqa2_tpu_torch.ops.cuda_vif_int import log2_table_audit, vif_motion_features_int
-from pqa2_tpu_torch.ops.motion_int import features_from_sad_prev, motion_from_sad
+from pqa2_tpu_torch.ops.motion import features_from_sad_prev
+from pqa2_tpu_torch.ops.motion_int import motion_from_sad
 
 # "auto" follows the model's extractor family; "float"/"integer"/
 # "integer_fast" force one (same environment override as pqa2_tpu).
@@ -84,20 +95,33 @@ def extract_features_batched(
     features on the input's device: adm2, motion, motion2, vif_scale0..3.
 
     Luma is integer codes or f32 on the 8-bit scale; ``bit_depth`` lets
-    the integer path recover the exact native codes."""
+    the integer path recover the exact native codes (the float path is
+    scale-invariant and casts to f32 on the device: the upload stays
+    uint8)."""
     if precision == "integer_fast":
         raise NotImplementedError(
             "integer_fast (smooth-log VIF statistic): ROADMAP Q1.10")
-    if precision != "integer":
-        raise NotImplementedError("float family: ROADMAP Q1.10")
+    if precision not in ("integer", "float"):
+        raise ValueError(f"unknown feature precision {precision!r}")
     n, h, w = ref.shape
     core = slice(1 if has_prev else 0, n - 1 if has_next else n)
-    vif, sad = vif_motion_features_int(ref, dist, core=core, gain_limit=vif_gain,
-                                       bit_depth=bit_depth)
-    motion, motion2 = features_from_sad_prev(
-        motion_from_sad(sad, h, w), n, has_prev=has_prev, has_next=has_next)
-    adm2 = adm_features_int(ref[core], dist[core], gain_limit=adm_gain,
-                            bit_depth=bit_depth)
+    if precision == "integer":
+        vif, sad = vif_motion_features_int(ref, dist, core=core, gain_limit=vif_gain,
+                                           bit_depth=bit_depth)
+        motion, motion2 = features_from_sad_prev(
+            motion_from_sad(sad, h, w), n, has_prev=has_prev, has_next=has_next)
+        adm2 = adm_features_int(ref[core], dist[core], gain_limit=adm_gain,
+                                bit_depth=bit_depth)
+    else:
+        ref = ref.float()
+        dist = dist.float()
+        # VIF on the core frames; the motion SAD over every frame, halos
+        # included, from the scale-0 call.
+        vif, sad = vif_features(ref[core], dist[core], gain_limit=vif_gain,
+                                variant=vif_variant, motion_ref=ref)
+        motion, motion2 = features_from_sad_prev(
+            sad[1:], n, has_prev=has_prev, has_next=has_next)
+        adm2 = adm_features(ref[core], dist[core], gain_limit=adm_gain)
     return {
         "adm2": adm2,
         "motion": motion,

@@ -21,9 +21,9 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from pqa2_tpu.io.video import VideoReader
-from pqa2_tpu.models.loader import BootstrapModel, VMAFModel
-from pqa2_tpu.models.registry import get_model
+from pqa2_tpu_torch.io.video import VideoReader
+from pqa2_tpu_torch.models.loader import BootstrapModel, VMAFModel
+from pqa2_tpu_torch.models.registry import get_model
 from pqa2_tpu_torch._device import require_cuda
 from pqa2_tpu_torch.models.svr import BootstrapPredictor, predictor_for_model
 from pqa2_tpu_torch.ops.cuda_ssim import ssim_sse_plane

@@ -1,8 +1,10 @@
-"""pqa2_tpu_torch stands without JAX and never hides a missing card.
+"""pqa2_tpu_torch stands alone and never hides a missing card.
 
   * a fresh interpreter imports the package and every module of it with
-    ``jax`` absent from ``sys.modules``;
-  * no source file of the package imports jax;
+    neither ``jax`` nor ``pqa2_tpu`` (nor any submodule of either) in
+    ``sys.modules``;
+  * no source file of the package, and not chip_smoke.py, imports jax or
+    pqa2_tpu (the port keeps its own copies of what it needs);
   * a kernel wrapper given a tensor that is neither on the CPU (plain
     version) nor on a CUDA device raises, without computing on the CPU;
   * asking for CUDA on a machine without a card raises (no CPU fallback),
@@ -19,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from pqa2_tpu.io import write_y4m
+from pqa2_tpu_torch.io.y4m import write_y4m
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "pqa2_tpu_torch"
@@ -39,8 +41,10 @@ def test_port_imports_without_jax():
     code = ("import importlib, sys\n"
             f"for m in {MODULES!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.'))\n"
+            "bad = sorted(k for k in sys.modules if k in ('jax', 'pqa2_tpu')\n"
+            "             or k.startswith(('jax.', 'pqa2_tpu.')))\n"
             "assert not bad, bad\n"
+            "assert 'pqa2_tpu_torch.golden.vif' in sys.modules\n"
             "print(len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                          capture_output=True, text=True, timeout=300)
@@ -48,11 +52,26 @@ def test_port_imports_without_jax():
     assert len(MODULES) >= 20
 
 
+def _imports_forbidden(stmt: str) -> bool:
+    """``import jax``/``from jax...`` or ``import pqa2_tpu``/``from
+    pqa2_tpu...`` (pqa2_tpu_torch starts with the same letters)."""
+    for kw in ("import ", "from "):
+        if stmt.startswith(kw):
+            mod = stmt[len(kw):].split()[0].split(",")[0]
+            top = mod.split(".")[0]
+            return top in ("jax", "pqa2_tpu")
+    return False
+
+
 def test_no_jax_import_in_sources():
+    assert _imports_forbidden("from pqa2_tpu.golden import vif")
+    assert _imports_forbidden("import pqa2_tpu")
+    assert _imports_forbidden("import jax.numpy as jnp")
+    assert not _imports_forbidden("from pqa2_tpu_torch.golden import vif")
     for p in list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
         for line in p.read_text().splitlines():
             s = line.strip()
-            assert not (s.startswith("import jax") or s.startswith("from jax")), (p, s)
+            assert not _imports_forbidden(s), (p, s)
 
 
 def _meta(*shape, dtype=torch.int32):
@@ -61,7 +80,24 @@ def _meta(*shape, dtype=torch.int32):
 
 @pytest.mark.parametrize("wrapper", ["vif_int_scale", "adm_int_level", "ssim_sse_plane"])
 def test_wrappers_refuse_other_devices(wrapper, monkeypatch):
-    from pqa2_tpu_torch.ops import adm_int, cuda_adm_int, cuda_ssim, cuda_vif_int, ssim, vif_int
+    """Each case covers one integer-family wrapper and a float-family one:
+    the VIF wrappers, the ADM wrappers, SSIM and the motion SAD. (Three
+    cases, not six: the file keeps its number of tests, by which
+    pytest-xdist's ``--dist loadfile`` orders the files it hands out.)"""
+    from pqa2_tpu_torch.ops import (
+        adm,
+        adm_int,
+        cuda_adm,
+        cuda_adm_int,
+        cuda_motion,
+        cuda_ssim,
+        cuda_vif,
+        cuda_vif_int,
+        motion,
+        ssim,
+        vif,
+        vif_int,
+    )
 
     def forbidden(*a, **k):
         raise AssertionError("plain version called for a non-CPU tensor")
@@ -69,18 +105,33 @@ def test_wrappers_refuse_other_devices(wrapper, monkeypatch):
     monkeypatch.setattr(cuda_vif_int, "vif_int_scale_plain", forbidden)
     monkeypatch.setattr(cuda_adm_int, "adm_level_plain", forbidden)
     monkeypatch.setattr(cuda_ssim, "ssim_sse_plane_plain", forbidden)
+    monkeypatch.setattr(cuda_vif, "vif_scale_plain", forbidden)
+    monkeypatch.setattr(cuda_adm, "adm_level_plain_float", forbidden)
+    monkeypatch.setattr(cuda_motion, "motion_sad_plain", forbidden)
     assert vif_int.vif_int_scale_plain is not forbidden
     assert adm_int.adm_level_plain is not forbidden and ssim.ssim_sse_plane_plain
-    with pytest.raises(ValueError, match="CUDA"):
-        if wrapper == "vif_int_scale":
-            cuda_vif_int.vif_int_scale(_meta(2, 32, 32), _meta(2, 32, 32), scale=0,
-                                       in_q=0, gain_limit=float("inf"), decimate=True)
-        elif wrapper == "adm_int_level":
-            cuda_adm_int.adm_int_level(_meta(2, 32, 32), _meta(2, 32, 32), level=0,
-                                       extra_row_shift=0, gain_limit=100.0)
-        else:
-            cuda_ssim.ssim_sse_plane(_meta(2, 32, 32, dtype=torch.float32),
-                                     _meta(2, 32, 32, dtype=torch.float32))
+    assert vif.vif_scale_plain is not forbidden and adm.adm_level_plain_float
+    assert motion.motion_sad_plain is not forbidden
+    f32 = dict(dtype=torch.float32)
+    calls = {
+        "vif_int_scale": [
+            lambda: cuda_vif_int.vif_int_scale(_meta(2, 32, 32), _meta(2, 32, 32), scale=0,
+                                               in_q=0, gain_limit=float("inf"),
+                                               decimate=True),
+            lambda: cuda_vif.vif_scale(_meta(2, 32, 32, **f32), _meta(2, 32, 32, **f32),
+                                       scale=0, emit_next=True)],
+        "adm_int_level": [
+            lambda: cuda_adm_int.adm_int_level(_meta(2, 32, 32), _meta(2, 32, 32), level=0,
+                                               extra_row_shift=0, gain_limit=100.0),
+            lambda: cuda_adm.adm_level(_meta(2, 32, 32, **f32), _meta(2, 32, 32, **f32),
+                                       level=0)],
+        "ssim_sse_plane": [
+            lambda: cuda_ssim.ssim_sse_plane(_meta(2, 32, 32, **f32), _meta(2, 32, 32, **f32)),
+            lambda: cuda_motion.motion_sad(_meta(2, 32, 32, **f32))],
+    }
+    for call in calls[wrapper]:
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
 
 
 def _no_card():

@@ -520,11 +520,15 @@ def test_pad_frames_and_iter_chunks():
 
 
 def test_float_family_and_integer_fast_wait_for_q1_10():
+    """The float family runs (ROADMAP Q1.10 done for it); only integer_fast
+    still waits for Q1.10."""
     from pqa2_tpu_torch.pipeline.features import extract_features_batched
 
     x = torch.zeros((2, 24, 24), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="Q1.10"):
-        extract_features_batched(x, x, precision="float")
+    feats = extract_features_batched(x, x, precision="float", vif_variant="classic")
+    assert set(feats) == {"adm2", "motion", "motion2", "vif_scale0", "vif_scale1",
+                          "vif_scale2", "vif_scale3"}
+    assert all(v.shape == (2,) and v.dtype == torch.float32 for v in feats.values())
     with pytest.raises(NotImplementedError, match="Q1.10"):
         extract_features_batched(x, x, precision="integer_fast")
 
@@ -597,3 +601,73 @@ def test_kernel_ssim_sse_matches_plain(cuda_device):
     s_p, e_p = ssim_sse_plane_plain(r, d, 8)
     assert (s_k.double() - s_p.double()).abs().max().item() <= SSIM_ATOL
     assert torch.equal(e_k, e_p)
+
+
+def _float_pair(seed, n, h, w, device):
+    ref, dist = _smooth_pair(seed, n, h, w)
+    return (torch.from_numpy(ref).float().to(device),
+            torch.from_numpy(dist).float().to(device))
+
+
+@pytest.mark.cuda
+def test_kernel_vif_scale_matches_plain(cuda_device):
+    """Kernel 5 at every scale, both statistics, gain inf and 1.0: decimated
+    planes equal in every bit, num/den within 1e-5 relative (f32 sums in
+    another order), the motion SAD of kernel 7 within 1e-5 relative, and a
+    second launch gives the same bits."""
+    from pqa2_tpu_torch.ops.cuda_vif import vif_scale
+    from pqa2_tpu_torch.ops.motion import motion_sad_plain
+    from pqa2_tpu_torch.ops.vif import vif_scale_plain
+
+    ref, dist = _float_pair(11, 6, 135, 241, cuda_device)
+    for variant, gain in (("classic", float("inf")), ("classic", 1.0),
+                          ("default", float("inf"))):
+        r, d = ref[1:5].contiguous(), dist[1:5].contiguous()
+        for scale in range(4):
+            kw = dict(scale=scale, gain_limit=gain, variant=variant, emit_next=scale < 3)
+            got = vif_scale(r, d, motion_ref=ref if scale == 0 else None, **kw)
+            again = vif_scale(r, d, **kw)
+            want = vif_scale_plain(r, d, **kw)
+            for a, b in zip(got[:2], want[:2]):
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
+            for a, b in zip(got[:4], again[:4]):
+                assert (a is None and b is None) or torch.equal(a, b)
+            for a, b in zip(got[2:4], want[2:4]):
+                assert (a is None and b is None) or torch.equal(a, b)
+            if scale == 0:
+                torch.testing.assert_close(got[4], motion_sad_plain(ref), rtol=1e-5, atol=0)
+            r, d = got[2], got[3]
+
+
+@pytest.mark.cuda
+def test_kernel_adm_level_matches_plain(cuda_device):
+    """Kernel 6 at every level, gain 100 and 1.0: approximation bands equal in
+    every bit, the six sums within 1e-5 relative, repeatable bits."""
+    from pqa2_tpu_torch.ops.adm import adm_level_plain_float
+    from pqa2_tpu_torch.ops.cuda_adm import adm_level
+
+    ref, dist = _float_pair(12, 4, 135, 241, cuda_device)
+    for gain in (100.0, 1.0):
+        r, d = ref, dist
+        for lvl in range(4):
+            got = adm_level(r, d, level=lvl, gain_limit=gain)
+            again = adm_level(r, d, level=lvl, gain_limit=gain)
+            want = adm_level_plain_float(r, d, level=lvl, gain_limit=gain)
+            torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+            for a, b in zip(got, again):
+                assert torch.equal(a, b)
+            assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+            r, d = got[1], got[2]
+
+
+@pytest.mark.cuda
+def test_kernel_motion_sad_matches_plain(cuda_device):
+    """Kernel 7: frame 0 exactly 0, the rest within 1e-5 relative, repeatable."""
+    from pqa2_tpu_torch.ops.cuda_motion import motion_sad
+    from pqa2_tpu_torch.ops.motion import motion_sad_plain
+
+    ref, _ = _float_pair(13, 5, 135, 241, cuda_device)
+    ref = torch.stack([torch.roll(f, 2 * i, dims=1) for i, f in enumerate(ref)])
+    got = motion_sad(ref)
+    assert got[0].item() == 0.0 and torch.equal(got, motion_sad(ref))
+    torch.testing.assert_close(got, motion_sad_plain(ref), rtol=1e-5, atol=0)

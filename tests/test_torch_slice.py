@@ -1,13 +1,14 @@
 """The port's main path end to end against the JAX package, on the CPU.
 
-A 9-frame 72x96 4:2:0 y4m pair scored with chunk_size=4 (chunks 4+4+1:
-both motion halos and a one-frame tail) through
-``pqa2_tpu.pipeline.streaming.stream_score`` once (in a child interpreter),
-and through the port's
-``stream_score`` / ``VMAFAnalyzer`` with ``device="cpu"`` (the kernels'
-plain versions). The content is a smoothed, moving base; the distorted
-clip adds +-8 noise to a mild blur, so VMAF stays well below its 100 clip
-and the score comparison means something.
+A 10-frame 72x96 4:2:0 y4m pair scored with chunk_size=4 (chunks 4+4+2:
+both motion halos and a short tail) through
+``pqa2_tpu.pipeline.streaming.stream_score`` once (in a child interpreter,
+see :func:`jax_stream_scores`), and through the port's ``stream_score`` /
+``VMAFAnalyzer`` with ``device="cpu"`` (the kernels' plain versions), with
+``vmaf_v0.6.1``: the integer family. The float family on the same clip is
+tests/test_torch_slice_float.py. The content is a smoothed, moving base;
+the distorted clip adds +-8 noise to a mild blur, so VMAF stays well below
+its 100 clip and the score comparison means something.
 
 Tolerances (each with its reason):
   vif_scale*          equal to JAX (same integer sums, same f32 combine);
@@ -33,7 +34,7 @@ from pqa2_tpu.io import write_y4m
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
-N, H, W = 9, 72, 96
+N, H, W = 10, 72, 96
 CHUNK = 4
 
 VIF_ATOL = 2e-6
@@ -79,7 +80,7 @@ def clip(tmp_path_factory):
     return paths, ref, dist, d
 
 
-# The JAX reference run, in a fresh interpreter (see jax_scores).
+# The JAX reference runs, in a fresh interpreter (see jax_stream_scores).
 _JAX_STREAM_SCORE = """
 import pickle, sys
 from pqa2_tpu.utils.stacklimit import raise_stack_limit
@@ -87,31 +88,45 @@ raise_stack_limit()
 import jax
 jax.config.update("jax_platforms", "cpu")
 from pqa2_tpu.pipeline.streaming import stream_score
-scores = stream_score(sys.argv[1], sys.argv[2], chunk_size=int(sys.argv[3]))
+scores = {m: stream_score(sys.argv[1], sys.argv[2], model=m, chunk_size=int(sys.argv[3]))
+          for m in sys.argv[5].split(",")}
 with open(sys.argv[4], "wb") as f:
     pickle.dump(scores, f)
 """
 
 
-@pytest.fixture(scope="module")
-def jax_scores(clip):
-    """``pqa2_tpu.pipeline.streaming.stream_score`` on the clip, once.
+def jax_stream_scores(clip, models):
+    """``pqa2_tpu.pipeline.streaming.stream_score`` on the clip, once per
+    model of ``models``, in one child interpreter -> {model: ClipScores}.
 
-    It runs in a child interpreter: a JAX streaming run leaves jit state
-    behind that can make a later JAX ``stream_score`` in the same process
-    fail ("Execution supplied 2 buffers but compiled program expected 4"),
-    and the test files that share this process must not inherit it."""
+    A child, because a JAX streaming run leaves jit state behind that can
+    make a later JAX ``stream_score`` in the same process fail ("Execution
+    supplied 2 buffers but compiled program expected 4"), and the test
+    files that share this process must not inherit it. Its XLA emits no
+    FMA: XLA's CPU backend contracts an f32 multiply and add into one FMA
+    wherever the CPU has FMA, which the JAX source does not ask for, and
+    ``--xla_cpu_max_isa=AVX`` leaves it none, so the JAX pipeline rounds
+    every operation on its own, as the port and its kernels do (the float
+    family depends on it: tests/test_torch_slice_float.py)."""
     (ref_path, dist_path), _, _, d = clip
     out = d / "jax_scores.pkl"
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
+    env["XLA_FLAGS"] = " ".join(
+        f for f in (env.get("XLA_FLAGS"), "--xla_cpu_max_isa=AVX") if f)
     proc = subprocess.run(
         [sys.executable, "-c", _JAX_STREAM_SCORE, ref_path, dist_path, str(CHUNK),
-         str(out)], cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+         str(out), ",".join(models)], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=900)
     assert proc.returncode == 0, proc.stderr[-3000:]
     with open(out, "rb") as f:
         return pickle.load(f)
+
+
+@pytest.fixture(scope="module")
+def jax_scores(clip):
+    return jax_stream_scores(clip, ["vmaf_v0.6.1"])["vmaf_v0.6.1"]
 
 
 @pytest.fixture(scope="module")
