@@ -82,8 +82,8 @@ FLOAT_MOTION_ATOL = 2e-3
 FLOAT_SUM_RTOL = 1e-5     # float kernel vs plain: sums of bit-equal per-pixel
 FLOAT_FEAT_ATOL = 1e-5    # values, float64 in the kernel, f32 in torch
 
-# The card's peaks for the bound (NVIDIA H100 SXM data sheet, as the
-# on-chip-measurement guide lists them): HBM3 bytes/s, and f32 operations/s
+# The card's peaks for the bound (NVIDIA H100 SXM data sheet): HBM3 bytes/s,
+# and f32 operations/s
 # outside the tensor cores, used for every scalar ALU operation (integer,
 # f32 and f64 alike; the card's int32 and f64 rates are lower, so the bound
 # stays a lower bound).
