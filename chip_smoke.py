@@ -4,7 +4,9 @@
     python3 chip_smoke.py                  # needs one sm_90 card
     python3 chip_smoke.py --profile DIR    # plus torch.profiler passes
 
-Phases (each prints its lines; any failure raises and the exit code is 1):
+Phases, run in the order 1, 3, 2, 4 so that the slices run in a process
+that has done nothing else yet, as a user's does (each prints its lines;
+any failure raises and the exit code is 1):
 
   1. the card (nvidia-smi name and power limit), torch's CUDA version, and
      the nvcc build of ``pqa2_tpu_torch/csrc`` (one nvcc per source, all
@@ -29,7 +31,8 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
      32 against the port's numpy oracles (``pqa2_tpu_torch.golden``);
   4. CUDA-event times of each kernel against its plain version at 1080p,
      each kernel's bound (the least time the card could take for the same
-     work), and each slice's frames per second, cold and warm.
+     work), and each slice's frames per second: its first run and three
+     warm runs.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX and
@@ -538,23 +541,26 @@ def run_slice(torch, analyzer, ref_path, dist_path, model, n):
     return res, elapsed, counts
 
 
-def warm_run(torch, analyzer, ref_path, dist_path, model, first, n, card, profile_dir):
-    """Phase 4b: a second, warm run of the same call for the frame rate (and,
-    with --profile, one more under torch.profiler)."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res2 = analyzer.analyze_videos(ref_path, dist_path, model=model)
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t0
-    if res2 is None or abs(res2["vmaf_score"] - first[0]["vmaf_score"]) > 0:
-        raise AssertionError(f"{model}: second run differs from the first")
+def warm_runs(torch, analyzer, ref_path, dist_path, model, first, n, card, profile_dir,
+              runs=3):
+    """Phase 4b: warm runs of the same call for the frame rate (and, with
+    --profile, one more under torch.profiler)."""
+    fps = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res2 = analyzer.analyze_videos(ref_path, dist_path, model=model)
+        torch.cuda.synchronize()
+        fps.append(n / (time.perf_counter() - t0))
+        if res2 is None or abs(res2["vmaf_score"] - first[0]["vmaf_score"]) > 0:
+            raise AssertionError(f"{model}: a warm run differs from the first")
     if profile_dir:
         profile_run(torch, lambda: analyzer.analyze_videos(ref_path, dist_path, model=model),
                     profile_dir, card, model)
-    elapsed = first[1]
     log(f"[times] slice 1080p {model}+PSNR+SSIM, {n} frames: first run "
-        f"{elapsed:.3f} s ({n / elapsed:.2f} fps), warm run {warm:.3f} s "
-        f"({n / warm:.2f} fps) [{card}]")
+        f"{first[1]:.3f} s ({n / first[1]:.2f} fps), warm runs "
+        + ", ".join(f"{f:.2f}" for f in fps)
+        + f" fps (median {sorted(fps)[len(fps) // 2]:.2f}) [{card}]")
 
 
 def phase_slice(torch, device, results, card, profile_dir=None):
@@ -610,7 +616,7 @@ def phase_slice(torch, device, results, card, profile_dir=None):
             raise AssertionError(f"frame 32 {nm} {got} vs oracle {want}")
     log(f"[oracle] {model} frame 32: motion {feats['motion'][32]:.6f} "
         f"(oracle {mo[1]:.6f}), motion2 {feats['motion2'][32]:.6f} (oracle {m2o[1]:.6f})")
-    warm_run(torch, analyzer, ref_path, dist_path, model, first, n, card, profile_dir)
+    warm_runs(torch, analyzer, ref_path, dist_path, model, first, n, card, profile_dir)
 
     # The float family: vmaf_float_v0.6.1 runs kernels 4-7 and none of 1-3.
     model = "vmaf_float_v0.6.1"
@@ -640,7 +646,7 @@ def phase_slice(torch, device, results, card, profile_dir=None):
             raise AssertionError(f"{model} frame 32 {nm} {got} vs oracle {want}")
     log(f"[oracle] {model} frame 32: motion {feats['motion'][32]:.6f} (oracle "
         f"{mo[1]:.6f}), motion2 {feats['motion2'][32]:.6f} (oracle {m2o[1]:.6f})")
-    warm_run(torch, analyzer, ref_path, dist_path, model, first, n, card, profile_dir)
+    warm_runs(torch, analyzer, ref_path, dist_path, model, first, n, card, profile_dir)
 
 
 def profile_run(torch, run, out_dir, card, label):
@@ -661,17 +667,22 @@ def profile_run(torch, run, out_dir, card, label):
         if e.device_type == DeviceType.CUDA:
             busy_us[e.name] = busy_us.get(e.name, 0.0) + e.time_range.elapsed_us()
     total = sum(busy_us.values()) / 1e3
-    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40)
+    averages = prof.key_averages()
+    table = averages.table(sort_by="self_cuda_time_total", row_limit=40)
+    host = averages.table(sort_by="self_cpu_time_total", row_limit=25)
     with open(os.path.join(out_dir, f"slice_profile_{label}.txt"), "w") as f:
         f.write(f"{card}\n{label}: wall {wall * 1e3:.3f} ms, device busy {total:.3f} ms\n\n")
         for name, us in sorted(busy_us.items(), key=lambda kv: -kv[1]):
             f.write(f"{us / 1e3:10.3f} ms  {name}\n")
-        f.write("\n" + table)
+        f.write("\n" + table + "\n\nHost self time by operation:\n" + host)
     log(f"[profile] {label} slice warm run under torch.profiler: wall {wall * 1e3:.3f} ms, "
         f"device busy {total:.3f} ms ({100.0 * (1 - total / (wall * 1e3)):.1f} % idle) "
         f"[{card}]")
     for name, us in sorted(busy_us.items(), key=lambda kv: -kv[1])[:10]:
         log(f"[profile]   {us / 1e3:9.3f} ms  {name[:90]}")
+    for e in sorted(averages, key=lambda e: -e.self_cpu_time_total)[:6]:
+        log(f"[profile]   host {e.self_cpu_time_total / 1e3:9.3f} ms self, "
+            f"{e.count} calls  {e.key[:70]}")
 
 
 def main(argv=None) -> int:
@@ -708,11 +719,10 @@ def main(argv=None) -> int:
                    "launches": 0, "max_abs_err": None, "ms": None, "plain_ms": None,
                    "bound_ms": None, "bound_by": None, "library_ms": None}
                for k, (src, rep) in KERNELS.items()}
+    phase_slice(torch, device, results, card, args.profile)
+    torch.cuda.empty_cache()
     ref, dist = phase_kernels(torch, device, results)
     phase_times(torch, device, results, ref, dist, card)
-    del ref, dist
-    torch.cuda.empty_cache()
-    phase_slice(torch, device, results, card, args.profile)
     log(card)
     log(json.dumps({"kernels": list(results.values())}))
     log(json.dumps({"ok": True, "device": {

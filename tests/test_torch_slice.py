@@ -1,14 +1,15 @@
 """The port's main path end to end against the JAX package, on the CPU.
 
-A 10-frame 72x96 4:2:0 y4m pair scored with chunk_size=4 (chunks 4+4+2:
-both motion halos and a short tail) through
+A 9-frame 72x96 4:2:0 y4m pair scored with chunk_size=4 (chunks 4+4+1:
+both motion halos and a one-frame tail) through
 ``pqa2_tpu.pipeline.streaming.stream_score`` once (in a child interpreter,
 see :func:`jax_stream_scores`), and through the port's ``stream_score`` /
 ``VMAFAnalyzer`` with ``device="cpu"`` (the kernels' plain versions), with
-``vmaf_v0.6.1``: the integer family. The float family on the same clip is
-tests/test_torch_slice_float.py. The content is a smoothed, moving base;
-the distorted clip adds +-8 noise to a mild blur, so VMAF stays well below
-its 100 clip and the score comparison means something.
+``vmaf_v0.6.1``: the integer family. The float family, on a 10-frame clip
+made the same way, is tests/test_torch_slice_float.py. The content is a
+smoothed, moving base; the distorted clip adds +-8 noise to a mild blur, so
+VMAF stays well below its 100 clip and the score comparison means
+something.
 
 Tolerances (each with its reason):
   vif_scale*          equal to JAX (same integer sums, same f32 combine);
@@ -19,6 +20,10 @@ Tolerances (each with its reason):
   SSIM                atol 1e-6 (f32 window ratios, mean in another order)
   finite PSNR         atol 1e-4 dB (JAX sums the SSE in f32; the port's is
                       exact)
+
+Keep this file at ten tests: pytest-xdist's ``--dist loadfile`` queues
+files by their number of tests, and the JAX package's files fail or hang
+depending on which of them share a worker process (ROADMAP Q1.0).
 """
 
 import os
@@ -34,7 +39,7 @@ from pqa2_tpu.io import write_y4m
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
-N, H, W = 10, 72, 96
+N, H, W = 9, 72, 96
 CHUNK = 4
 
 VIF_ATOL = 2e-6
@@ -48,13 +53,13 @@ FEATURES = ("adm2", "motion", "motion2", "vif_scale0", "vif_scale1",
             "vif_scale2", "vif_scale3")
 
 
-def _clip(seed=0, noise=8, blur=2):
+def _clip(n=N, seed=0, noise=8, blur=2):
     rng = np.random.default_rng(seed)
-    base = rng.uniform(16, 235, size=(H + 2 * N, W + 2 * N))
+    base = rng.uniform(16, 235, size=(H + 2 * n, W + 2 * n))
     for _ in range(2):
         base = (base + np.roll(base, 1, -1) + np.roll(base, -1, -1)
                 + np.roll(base, 1, -2) + np.roll(base, -1, -2)) / 5.0
-    ref = np.round(np.stack([base[t: t + H, 2 * t: 2 * t + W] for t in range(N)]))
+    ref = np.round(np.stack([base[t: t + H, 2 * t: 2 * t + W] for t in range(n)]))
     ref = ref.astype(np.uint8)
     b = ref.astype(np.float64)
     for _ in range(blur):
@@ -66,18 +71,24 @@ def _clip(seed=0, noise=8, blur=2):
 
 
 def _frames(y):
-    c = y.reshape(N, H // 2, 2, W // 2, 2).mean(axis=(2, 4)).round().astype(np.uint8)
-    return [{"y": y[i], "u": c[i], "v": 255 - c[i]} for i in range(N)]
+    n = y.shape[0]
+    c = y.reshape(n, H // 2, 2, W // 2, 2).mean(axis=(2, 4)).round().astype(np.uint8)
+    return [{"y": y[i], "u": c[i], "v": 255 - c[i]} for i in range(n)]
 
 
-@pytest.fixture(scope="module")
-def clip(tmp_path_factory):
-    d = tmp_path_factory.mktemp("torch_slice")
-    ref, dist = _clip()
+def write_clip(d, n=N):
+    """The n-frame y4m pair in directory ``d`` -> ((ref path, dist path),
+    ref luma, dist luma, d)."""
+    ref, dist = _clip(n)
     paths = (str(d / "ref.y4m"), str(d / "dist.y4m"))
     write_y4m(paths[0], _frames(ref))
     write_y4m(paths[1], _frames(dist))
     return paths, ref, dist, d
+
+
+@pytest.fixture(scope="module")
+def clip(tmp_path_factory):
+    return write_clip(tmp_path_factory.mktemp("torch_slice"))
 
 
 # The JAX reference runs, in a fresh interpreter (see jax_stream_scores).
@@ -180,23 +191,28 @@ def test_ssim_matches_jax(jax_scores, port_scores):
 
 
 def test_chunk_boundary_frames_match_oracles(clip, port_scores):
-    """Frames 0 and 4 (the first chunk boundary) against the numpy oracles;
-    motion of frame 4 needs frames 3..5 across the boundary."""
+    """Frames 0, 4 (the first chunk boundary) and 8 (alone in the one-frame
+    tail chunk) against the numpy oracles; motion of frame 4 needs frames
+    3..5 across the boundary, motion of frame 8 its halo frame 7 and no next
+    frame."""
     from pqa2_tpu.golden.adm_int import adm_features_int
     from pqa2_tpu.golden.motion_int import motion_features_int
     from pqa2_tpu.golden.vif_int import vif_features_int
 
     _, ref, dist, _ = clip
     f = port_scores.features
-    for i in (0, CHUNK):
+    tail = N - 1
+    assert tail == 2 * CHUNK
+    for i in (0, CHUNK, tail):
         vif = [f[f"vif_scale{s}"][i] for s in range(4)]
         np.testing.assert_allclose(vif, vif_features_int(ref[i], dist[i]), rtol=0,
                                    atol=VIF_ATOL)
         np.testing.assert_allclose(f["adm2"][i], adm_features_int(ref[i], dist[i])[0],
                                    rtol=0, atol=ADM_ATOL)
-    motion, motion2 = motion_features_int(ref[CHUNK - 1: CHUNK + 2])
-    np.testing.assert_allclose(f["motion"][CHUNK], motion[1], rtol=MOTION_RTOL)
-    np.testing.assert_allclose(f["motion2"][CHUNK], motion2[1], rtol=MOTION_RTOL)
+    for i, frames in ((CHUNK, ref[CHUNK - 1: CHUNK + 2]), (tail, ref[tail - 1:])):
+        motion, motion2 = motion_features_int(frames)
+        np.testing.assert_allclose(f["motion"][i], motion[1], rtol=MOTION_RTOL)
+        np.testing.assert_allclose(f["motion2"][i], motion2[1], rtol=MOTION_RTOL)
 
 
 def test_chunked_equals_whole_clip(clip, port_scores):

@@ -1,18 +1,19 @@
 """The port's float family end to end against the JAX package, on the CPU.
 
-The clip of tests/test_torch_slice.py (10 frames of 72x96 4:2:0,
-chunk_size=4: chunks 4+4+2, both motion halos and a short tail) scored with
-the float-trained ``vmaf_float_v0.6.1`` through the port's
+A 10-frame 72x96 4:2:0 pair made as in tests/test_torch_slice.py,
+chunk_size=4 (chunks 4+4+2: both motion halos and a short tail), scored
+with the float-trained ``vmaf_float_v0.6.1`` through the port's
 ``VMAFAnalyzer(device="cpu")`` (the kernels' plain versions), and with the
 bootstrap ``vmaf_float_b_v0.6.3``, against ``pqa2_tpu``'s ``stream_score``
 on the same files in one child interpreter
-(``test_torch_slice.jax_stream_scores``) and against the float64 oracles.
+(``test_torch_slice.jax_stream_scores``) and against the float64 oracles;
+its NEG variant against the oracles at gain limit 1.0.
 
 The port rounds every f32 product and sum on its own, in the JAX package's
 operation order; the JAX child runs without FMA instructions so that its
-jitted pipeline does the same (with FMAs, its own vif_scale3 on this
-clip's 9x12 plane moves by 1.3e-4 and its VMAF by 8e-3 against its
-op-by-op run: tools/float_fma_spread.py; ROADMAP Queue 3).
+jitted pipeline does the same (with FMAs, its own small-scale VIF and its
+VMAF move by more than these tolerances against its op-by-op run;
+ROADMAP Queue 3).
 
 Tolerances (each with its reason):
   vif_scale*, adm2    atol 5e-5 vs JAX, inside the JAX package's own kernel-
@@ -28,11 +29,9 @@ Tolerances (each with its reason):
   PSNR, SSIM          as in tests/test_torch_slice.py
   chunked vs whole    atol 1e-5
 
-A file of its own with few tests: pytest-xdist's ``--dist loadfile`` queues
-files by their number of tests, so this one runs late and
-tests/test_torch_slice.py keeps its place in the queue (ROADMAP Q1.0: the
-JAX package's files fail or hang depending on which of them share a worker
-process).
+Keep this file below eight tests: pytest-xdist's ``--dist loadfile`` queues
+files by their number of tests, so it runs after every file of the JAX
+package whose order matters (ROADMAP Q1.0).
 """
 
 import os
@@ -43,13 +42,14 @@ import pytest
 from test_torch_slice import (
     CHUNK,
     FEATURES,
-    N,
     PSNR_ATOL,
     ROOT,
     SSIM_ATOL,
-    clip,  # noqa: F401  (the module-scoped clip fixture)
     jax_stream_scores,
+    write_clip,
 )
+
+N = 10
 
 FLOAT_VIF_ATOL = 5e-5
 FLOAT_ADM_ATOL = 5e-5
@@ -62,11 +62,17 @@ ORACLE_MOTION = 2e-3
 CHUNK_ATOL = 1e-5
 
 FLOAT_MODEL = "vmaf_float_v0.6.1"
+NEG_MODEL = "vmaf_float_v0.6.1neg"
 BOOT_MODEL = "vmaf_float_b_v0.6.3"
 
 
 @pytest.fixture(scope="module")
-def jax_runs(clip):  # noqa: F811
+def clip(tmp_path_factory):
+    return write_clip(tmp_path_factory.mktemp("torch_slice_float"), N)
+
+
+@pytest.fixture(scope="module")
+def jax_runs(clip):
     """The JAX package's float and bootstrap runs on the clip."""
     return jax_stream_scores(clip, [FLOAT_MODEL, BOOT_MODEL])
 
@@ -114,20 +120,22 @@ def _oracle_vmaf(model, feats):
     return np.stack([numpy_predict(m, x) for m in subs])
 
 
-def test_float_features_match_jax_and_oracles(jax_runs, port_float, oracle_features):
-    got = port_float[1].features
-    want = jax_runs[FLOAT_MODEL].features
-    for k in FEATURES:
-        assert got[k].shape == (N,)
+def _assert_feature_matches_jax(k, got, want):
+    if k.startswith("motion"):
+        np.testing.assert_allclose(got, want, rtol=FLOAT_MOTION_RTOL, atol=0, err_msg=k)
+    else:
         tol = FLOAT_ADM_ATOL if k == "adm2" else FLOAT_VIF_ATOL
-        if k.startswith("motion"):
-            np.testing.assert_allclose(got[k], want[k], rtol=FLOAT_MOTION_RTOL, atol=0,
-                                       err_msg=k)
-        else:
-            np.testing.assert_allclose(got[k], want[k], rtol=0, atol=tol, err_msg=k)
+        np.testing.assert_allclose(got, want, rtol=0, atol=tol, err_msg=k)
+
+
+def test_float_features_match_jax_and_oracles(jax_runs, port_float, oracle_features):
+    for k in FEATURES:
+        got = port_float[1].features[k]
+        assert got.shape == (N,)
+        _assert_feature_matches_jax(k, got, jax_runs[FLOAT_MODEL].features[k])
         oracle_tol = {"adm2": ORACLE_ADM, "motion": ORACLE_MOTION,
                       "motion2": ORACLE_MOTION}.get(k, ORACLE_VIF)
-        np.testing.assert_allclose(got[k], oracle_features[k], rtol=0, atol=oracle_tol,
+        np.testing.assert_allclose(got, oracle_features[k], rtol=0, atol=oracle_tol,
                                    err_msg=k)
 
 
@@ -163,6 +171,32 @@ def test_float_chunked_equals_whole_clip(clip, port_float):
         np.testing.assert_allclose(got.features[k], whole.features[k], rtol=0,
                                    atol=CHUNK_ATOL, err_msg=k)
     np.testing.assert_allclose(got.vmaf, whole.vmaf, rtol=0, atol=CHUNK_ATOL)
+
+
+def test_float_neg_model_matches_oracles(clip, port_float):
+    """``vmaf_float_v0.6.1neg``: VIF and ADM at gain limit 1.0, which lowers
+    them against the unlimited float model's, end to end against the float64
+    oracles at the same limit (the per-op comparison with the JAX twins at
+    gain 1.0 is tests/test_torch_float.py)."""
+    from pqa2_tpu.golden.adm import adm_features
+    from pqa2_tpu.golden.vif import vif_features
+    from pqa2_tpu_torch.pipeline.streaming import stream_score
+
+    _, ref, dist, _ = clip
+    got = stream_score(*clip[0], model=NEG_MODEL, chunk_size=CHUNK, with_psnr=False,
+                       with_ssim=False, device="cpu")
+    assert got.model_name == NEG_MODEL
+    vif = np.array([vif_features(ref[i], dist[i], gain_limit=1.0, variant="classic")
+                    for i in range(N)])
+    adm2 = np.array([adm_features(ref[i], dist[i], gain_limit=1.0)[0] for i in range(N)])
+    for s in range(4):
+        np.testing.assert_allclose(got.features[f"vif_scale{s}"], vif[:, s], rtol=0,
+                                   atol=ORACLE_VIF)
+    np.testing.assert_allclose(got.features["adm2"], adm2, rtol=0, atol=ORACLE_ADM)
+    plain = port_float[1].features
+    assert np.all(got.features["adm2"] <= plain["adm2"])
+    assert not np.array_equal(got.features["adm2"], plain["adm2"])
+    np.testing.assert_array_equal(got.features["motion2"], plain["motion2"])
 
 
 def test_float_bootstrap_matches_jax(clip, jax_runs, oracle_features):
