@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # needs one sm_90 card
     python3 chip_smoke.py --profile DIR    # plus torch.profiler passes
+    python3 chip_smoke.py --sass DIR       # plus the VIF kernels' SASS opcodes
 
 Phases, run in the order 1, 3, 2, 4 so that the slices run in a process
 that has done nothing else yet, as a user's does (each prints its lines;
@@ -13,14 +14,19 @@ any failure raises and the exit code is 1):
      started together; its time when it built);
   2. every kernel against its plain PyTorch version on the card, at the
      main paths' shapes: a 34-frame 1080p luma chunk (32 core frames and
-     both halos) and 960x540 chroma, plus one 3840x2160 and one 4096x4096
-     pair for VIF and ADM. Integer outputs must be equal; SSIM within
-     1e-6; the log2 audit 0 mismatches. The float kernels (VIF with the
-     classic statistic, gain inf and 1.0; ADM, gain 100 and 1.0; the motion
-     SAD) on the 1080p chunk and a 3840x2160 pair: decimated and
+     both halos; integer VIF on the uint8 luma as the main path hands it
+     over and on int32 codes) and 960x540 chroma, plus one 3840x2160 and
+     one 4096x4096 pair for VIF and ADM. Integer outputs must be equal;
+     SSIM within 1e-6; the log2 audit 0 mismatches. The float kernels (VIF
+     with the classic statistic, gain inf and 1.0; ADM, gain 100 and 1.0;
+     the motion SAD) on the 1080p chunk and a 3840x2160 pair: decimated and
      approximation planes equal in every bit, per-frame sums within 1e-5
      relative, features within 1e-5, and a second launch on the same input
-     gives the same bits;
+     gives the same bits. Both VIF kernels also on edge frames at 1080p and
+     3840x2160 (all-peak against all-0 and the reverse, 0/peak
+     checkerboards of single pixels and of 8x8 blocks against their
+     inverses) at 8 bits (integer VIF on uint8 and int32), 10 and 16 bits
+     (the largest codes; float VIF on the 8-bit scale, both statistics);
   3. the slices: a synthetic 1920x1080 4:2:0 y4m pair of 72 frames through
      ``VMAFAnalyzer(device="cuda").analyze_videos``, once with
      ``vmaf_v0.6.1`` (the integer family) and once with
@@ -32,7 +38,8 @@ any failure raises and the exit code is 1):
   4. CUDA-event times of each kernel against its plain version at 1080p,
      each kernel's bound (the least time the card could take for the same
      work), and each slice's frames per second: its first run and three
-     warm runs.
+     warm runs. With --profile, torch.profiler over one more warm run of
+     each slice and over three scale-0 calls of each VIF kernel.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX and
@@ -134,6 +141,25 @@ def distort(torch, ref, seed, radius=1, noise=8):
     return (b.round() + n).clamp(0, 255).to(torch.uint8)
 
 
+def edge_frames(torch, h, w, depth, device):
+    """(ref, dist), 4 frames of codes in [0, 2^depth - 1] (uint8 at 8 bits,
+    else int64): all-peak against all-0 and the reverse, a 0/peak
+    checkerboard of single pixels and one of 8x8 blocks against their
+    inverses."""
+    peak = (1 << depth) - 1
+    yy = torch.arange(h, device=device)[:, None]
+    xx = torch.arange(w, device=device)[None, :]
+    c1 = ((yy + xx) % 2) * peak
+    c8 = ((yy // 8 + xx // 8) % 2) * peak
+    full = torch.full((h, w), peak, device=device, dtype=torch.int64)
+    zero = torch.zeros_like(full)
+    ref = torch.stack([full, zero, c1, c8])
+    dist = torch.stack([zero, full, peak - c1, peak - c8])
+    if depth == 8:
+        ref, dist = ref.to(torch.uint8), dist.to(torch.uint8)
+    return ref.contiguous(), dist.contiguous()
+
+
 def check_equal(torch, name, a, b) -> float:
     """Max |a - b| of two integer outputs; raises unless they are equal."""
     if a is None and b is None:
@@ -181,10 +207,7 @@ def phase_kernels(torch, device, results):
 
     err = {"vif_int_scale": 0.0, "adm_int_level": 0.0}
 
-    def vif_all_scales(ref, dist, core_ref, label):
-        r, in_q = to_native_grid(ref, 8)
-        d, _ = to_native_grid(dist, 8)
-        mref = to_native_grid(core_ref, 8)[0] if core_ref is not None else None
+    def vif_all_scales(r, d, mref, in_q, label):
         for scale in range(4):
             kw = dict(scale=scale, in_q=in_q, gain_limit=float("inf"),
                       decimate=scale < 3, motion_ref=mref if scale == 0 else None)
@@ -197,7 +220,7 @@ def phase_kernels(torch, device, results):
             del want
             r, d, in_q = got[1], got[2], 8
         log(f"[kernels] vif_int_scale {label}: LUT accumulators, decimated planes"
-            f"{' and SAD' if core_ref is not None else ''} equal at all 4 scales")
+            f"{' and SAD' if mref is not None else ''} equal at all 4 scales")
 
     def adm_all_levels(ref, dist, label):
         r, drop = level_input(ref, 8)
@@ -217,17 +240,30 @@ def phase_kernels(torch, device, results):
         log(f"[kernels] adm_int_level {label}: pooled cube sums and approximation "
             f"planes equal at all 4 levels")
 
-    # 1080p chunk: 32 core frames with a halo frame on each side.
+    # 1080p chunk: 32 core frames with a halo frame on each side, as the
+    # main path hands it over (uint8 luma, the core frames a view of the
+    # chunk), and as int32 codes.
     ref = smooth_frames(torch, 34, 1080, 1920, 1, device)
     dist = distort(torch, ref, 2)
-    vif_all_scales(ref[1:33], dist[1:33], ref, "1080p 32+2 frames")
+    for kind, (cr, cd) in (("uint8", (ref, dist)),
+                           ("int32", (to_native_grid(ref, 8)[0], to_native_grid(dist, 8)[0]))):
+        vif_all_scales(cr[1:33], cd[1:33], cr, 0, f"1080p 32+2 frames {kind}")
     adm_all_levels(ref[1:33], dist[1:33], "1080p 32 frames")
     for label, (h, w) in (("3840x2160", (2160, 3840)), ("4096x4096", (4096, 4096))):
         r1 = smooth_frames(torch, 1, h, w, 3, device)
         d1 = distort(torch, r1, 4)
-        vif_all_scales(r1, d1, None, label)
+        vif_all_scales(r1, d1, None, 0, label)
         adm_all_levels(r1, d1, label)
         del r1, d1
+    # The edges of kernel 1's arithmetic: uint32 filters at 8 bits, the
+    # widening path at 10 and 16 bits, at the largest codes.
+    for label, (h, w) in (("1080p", (1080, 1920)), ("3840x2160", (2160, 3840))):
+        for depth, kind in ((8, "uint8"), (8, "int32"), (10, "int32"), (16, "int32")):
+            r1, d1 = edge_frames(torch, h, w, depth, device)
+            if kind == "int32":
+                r1, d1 = r1.to(torch.int32), d1.to(torch.int32)
+            vif_all_scales(r1, d1, r1, max(depth - 8, 0), f"edges {label} {depth}-bit {kind}")
+            del r1, d1
     for k, v in err.items():
         results[k]["max_abs_err"] = v
 
@@ -261,9 +297,9 @@ def phase_float_kernels(torch, device, results, ref, dist):
 
     err = {k: 0.0 for k in FLOAT_KERNELS}
 
-    def vif_all_scales(r, d, m, label, gain):
+    def vif_all_scales(r, d, m, label, gain, variant="classic"):
         for scale in range(4):
-            kw = dict(scale=scale, gain_limit=gain, variant="classic", emit_next=scale < 3)
+            kw = dict(scale=scale, gain_limit=gain, variant=variant, emit_next=scale < 3)
             got = cuda_vif.vif_scale(r, d, motion_ref=m if scale == 0 else None, **kw)
             again = cuda_vif.vif_scale(r, d, motion_ref=m if scale == 0 else None, **kw)
             want = vif_scale_plain(r, d, **kw)
@@ -288,7 +324,7 @@ def phase_float_kernels(torch, device, results, ref, dist):
             torch.cuda.synchronize()
             del want, again
             r, d = got[2], got[3]
-        log(f"[kernels] vif_scale {label} classic gain {gain}: decimated planes "
+        log(f"[kernels] vif_scale {label} {variant} gain {gain}: decimated planes "
             f"bit-equal, num/den within {FLOAT_SUM_RTOL:g} rel, features within "
             f"{FLOAT_FEAT_ATOL:g}{', motion SAD within 1e-05 rel' if m is not None else ''}, "
             f"second launch bit-equal, all 4 scales")
@@ -323,6 +359,16 @@ def phase_float_kernels(torch, device, results, ref, dist):
     rf, df, mf = ref[1:33].float(), dist[1:33].float(), ref.float()
     for gain in (float("inf"), 1.0):
         vif_all_scales(rf, df, mf, "1080p 32+2 frames", gain)
+    # The same edge frames as kernel 1's, as f32 on the 8-bit scale, both
+    # statistics.
+    for label, (h, w) in (("1080p", (1080, 1920)), ("3840x2160", (2160, 3840))):
+        for depth in (8, 10, 16):
+            r1, d1 = edge_frames(torch, h, w, depth, device)
+            r1, d1 = r1.float() / (1 << (depth - 8)), d1.float() / (1 << (depth - 8))
+            for variant in ("classic", "default"):
+                for gain in (float("inf"), 1.0):
+                    vif_all_scales(r1, d1, None, f"edges {label} {depth}-bit", gain, variant)
+            del r1, d1
     for gain in (100.0, 1.0):
         adm_all_levels(rf, df, "1080p 32 frames", gain)
     check_bits(torch, "motion_sad (second launch)", cuda_motion.motion_sad(mf),
@@ -388,7 +434,7 @@ def work(name, n, h, w, m=0):
     raise KeyError(name)
 
 
-def phase_times(torch, device, results, ref, dist, card):
+def phase_times(torch, device, results, ref, dist, card, profile_dir=None):
     """Phase 4a: each kernel against its plain version at 1080p, CUDA events,
     and its bound."""
     from pqa2_tpu_torch.ops import (
@@ -407,10 +453,13 @@ def phase_times(torch, device, results, ref, dist, card):
     from pqa2_tpu_torch.ops.vif_int import to_native_grid, vif_int_scale_plain
 
     n, h, w = 32, ref.shape[1], ref.shape[2]
-    r = to_native_grid(ref[1:33], 8)[0]
-    d = to_native_grid(dist[1:33], 8)[0]
-    m = to_native_grid(ref, 8)[0]
+    # The main path's scale-0 call: the chunk's uint8 luma, the core frames
+    # a view of it (the int32 codes are timed beside it).
+    r, d, m = ref[1:33], dist[1:33], ref
     kw = dict(scale=0, in_q=0, gain_limit=float("inf"), decimate=True, motion_ref=m)
+    mi = to_native_grid(ref, 8)[0]
+    ri, di = mi[1:33], to_native_grid(dist[1:33], 8)[0]
+    kwi = dict(kw, motion_ref=mi)
     ra, _ = level_input(ref[1:33], 8)
     da, _ = level_input(dist[1:33], 8)
     akw = dict(level=0, extra_row_shift=0, gain_limit=100.0)
@@ -419,7 +468,7 @@ def phase_times(torch, device, results, ref, dist, card):
     cases = {
         "vif_int_scale": (lambda: cuda_vif_int.vif_int_scale(r, d, **kw),
                           lambda: vif_int_scale_plain(r, d, **kw),
-                          "scale 0, 32 core frames + motion over 34, 1080p",
+                          "scale 0, 32 core frames + motion over 34, 1080p, uint8",
                           work("vif_int_scale", n, h, w, m=34)),
         "log2_table_audit": (lambda: cuda_vif_int.log2_table_audit(device),
                              lambda: cuda_vif_int._audit_plain(device),
@@ -449,6 +498,13 @@ def phase_times(torch, device, results, ref, dist, card):
         log(f"[times] {name} ({what}): kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
             f"bound {b_ms:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, {nops / 1e9:.2f} G ops) "
             f"[{card}]")
+    i_ms = time_call(torch, lambda: cuda_vif_int.vif_int_scale(ri, di, **kwi), 10)
+    log(f"[times] vif_int_scale (the same call on int32 codes): kernel {i_ms:.3f} ms [{card}]")
+    if profile_dir:
+        for name in ("vif_int_scale", "vif_scale"):
+            fn = cases[name][0]
+            profile_run(torch, lambda: [fn() for _ in range(3)], profile_dir, card,
+                        f"{name}_3_calls")
 
 
 def write_pair(n, h, w, ref_path, dist_path, torch, device):
@@ -556,7 +612,7 @@ def warm_runs(torch, analyzer, ref_path, dist_path, model, first, n, card, profi
             raise AssertionError(f"{model}: a warm run differs from the first")
     if profile_dir:
         profile_run(torch, lambda: analyzer.analyze_videos(ref_path, dist_path, model=model),
-                    profile_dir, card, model)
+                    profile_dir, card, f"slice_{model}_warm_run")
     log(f"[times] slice 1080p {model}+PSNR+SSIM, {n} frames: first run "
         f"{first[1]:.3f} s ({n / first[1]:.2f} fps), warm runs "
         + ", ".join(f"{f:.2f}" for f in fps)
@@ -650,8 +706,9 @@ def phase_slice(torch, device, results, card, profile_dir=None):
 
 
 def profile_run(torch, run, out_dir, card, label):
-    """torch.profiler over one more warm run of a slice: device busy time
-    against wall time, and the kernel table, written to ``out_dir``."""
+    """torch.profiler over one call of ``run`` (a warm slice run, or one
+    kernel call): device busy time against wall time, and the kernel table,
+    written to ``out_dir``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -662,33 +719,65 @@ def profile_run(torch, run, out_dir, card, label):
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy_us = {}
+    busy_us, count = {}, {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             busy_us[e.name] = busy_us.get(e.name, 0.0) + e.time_range.elapsed_us()
+            count[e.name] = count.get(e.name, 0) + 1
     total = sum(busy_us.values()) / 1e3
     averages = prof.key_averages()
     table = averages.table(sort_by="self_cuda_time_total", row_limit=40)
     host = averages.table(sort_by="self_cpu_time_total", row_limit=25)
-    with open(os.path.join(out_dir, f"slice_profile_{label}.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"profile_{label}.txt"), "w") as f:
         f.write(f"{card}\n{label}: wall {wall * 1e3:.3f} ms, device busy {total:.3f} ms\n\n")
         for name, us in sorted(busy_us.items(), key=lambda kv: -kv[1]):
-            f.write(f"{us / 1e3:10.3f} ms  {name}\n")
+            f.write(f"{us / 1e3:10.3f} ms {count[name]:5d}x  {name}\n")
         f.write("\n" + table + "\n\nHost self time by operation:\n" + host)
-    log(f"[profile] {label} slice warm run under torch.profiler: wall {wall * 1e3:.3f} ms, "
+    log(f"[profile] {label} under torch.profiler: wall {wall * 1e3:.3f} ms, "
         f"device busy {total:.3f} ms ({100.0 * (1 - total / (wall * 1e3)):.1f} % idle) "
         f"[{card}]")
     for name, us in sorted(busy_us.items(), key=lambda kv: -kv[1])[:10]:
-        log(f"[profile]   {us / 1e3:9.3f} ms  {name[:90]}")
+        log(f"[profile]   {us / 1e3:9.3f} ms {count[name]:4d}x  {name[:90]}")
     for e in sorted(averages, key=lambda e: -e.self_cpu_time_total)[:6]:
         log(f"[profile]   host {e.self_cpu_time_total / 1e3:9.3f} ms self, "
             f"{e.count} calls  {e.key[:70]}")
+
+
+def sass_report(build, out_dir):
+    """cuobjdump -sass of the kernel library into ``out_dir``; prints each
+    VIF scale kernel's instruction count and its most frequent opcodes."""
+    import collections
+    import re
+
+    os.makedirs(out_dir, exist_ok=True)
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(build.BUILD_DIR / build.LIB_NAME)],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    with open(os.path.join(out_dir, "libpqa2_kernels.sass"), "w") as f:
+        f.write(sass)
+    ops = collections.defaultdict(collections.Counter)
+    fn = None
+    insn = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif fn:
+            m = insn.search(line)
+            if m:
+                ops[fn][m.group(1)] += 1
+    for fn, cnt in sorted(ops.items()):
+        if "vif_int_scale_kernel" in fn or "vif_scale_f32_kernel" in fn:
+            top = ", ".join(f"{k} {v}" for k, v in cnt.most_common(14))
+            log(f"[sass] {fn[:90]}: {sum(cnt.values())} instructions; {top}")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also profile one warm run of each slice; tables go to DIR")
+    ap.add_argument("--sass", metavar="DIR", default=None,
+                    help="also write the library's SASS to DIR and print the opcode "
+                         "counts of the VIF scale kernels")
     args = ap.parse_args(argv)
 
     import torch
@@ -715,6 +804,9 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[build] {line.strip()}")
 
+    if args.sass:
+        sass_report(_build, args.sass)
+
     results = {k: {"name": k, "route": "cuda", "source": src, "replaces": rep,
                    "launches": 0, "max_abs_err": None, "ms": None, "plain_ms": None,
                    "bound_ms": None, "bound_by": None, "library_ms": None}
@@ -722,7 +814,7 @@ def main(argv=None) -> int:
     phase_slice(torch, device, results, card, args.profile)
     torch.cuda.empty_cache()
     ref, dist = phase_kernels(torch, device, results)
-    phase_times(torch, device, results, ref, dist, card)
+    phase_times(torch, device, results, ref, dist, card, args.profile)
     log(card)
     log(json.dumps({"kernels": list(results.values())}))
     log(json.dumps({"ok": True, "device": {

@@ -14,6 +14,16 @@ with_motion=True)`` does (pallas_vif.py:451-501).
 The wrapper computes with the plain version (``ops/vif.py``) only for CPU
 tensors; for CUDA tensors it launches the kernel or raises.
 ``vif_scale.launches`` counts kernel launches.
+
+Design (``csrc/vif.cu``): one block per 48x32 tile stages both planes with
+the filter's halo in shared memory, then register-tiled column and row
+passes (each staged value read once per moment, x*x, y*y, x*y rounded once
+per staged value, the taps in the kernel's parameters), the statistic, and
+the next scale's planes from the same tile. The planes must equal the
+plain version's bit for bit, so every product and sum is rounded on its
+own: no FMA, no regrouping. What bounds it on the H100 is f32 issue of
+those unfused multiplies and adds, about twice the instructions an
+FMA-rate bound counts (PERF.md §6).
 """
 
 from __future__ import annotations
@@ -29,7 +39,7 @@ from pqa2_tpu_torch import _build
 from pqa2_tpu_torch.golden.filters import vif_filter
 from pqa2_tpu_torch.golden.vif import EPS, SIGMA_MAX_INV, SIGMA_NSQ
 from pqa2_tpu_torch.ops.cuda_motion import motion_sad
-from pqa2_tpu_torch.ops.cuda_vif_int import _check_device, _taps
+from pqa2_tpu_torch.ops.cuda_vif_int import _check_device, host_taps
 from pqa2_tpu_torch.ops.vif import VARIANTS, vif_ratio, vif_scale_plain
 
 _P = ctypes.c_void_p
@@ -86,7 +96,7 @@ def vif_scale(
         _build.launch(
             "pqa2_vif_scale_f32", _VIF_ARGS,
             _build.ptr(ref), _build.ptr(dist), n, h, w, half, int(emit_next),
-            _build.ptr(_taps(device, ("vif", scale, emit_next), taps, np.float32)),
+            host_taps(("vif_f32", scale, emit_next), np.asarray(taps, np.float32), _F),
             int(variant == "classic"), int(finite), gain_limit if finite else 0.0,
             EPS, SIGMA_NSQ, SIGMA_MAX_INV,
             _build.ptr(part), _build.ptr(sums), _build.ptr(next_ref),

@@ -15,7 +15,16 @@ Counterpart of ``pqa2_tpu/ops/pallas_vif_int.py``:
 
 Each wrapper computes with its plain version (``ops/vif_int.py``) only for
 CPU tensors; for CUDA tensors it launches the kernel or raises. ``launches``
-on each wrapper counts kernel launches.
+on each wrapper counts its calls that launch (one per scale).
+
+Design (``csrc/vif_int.cu``): one launch per scale stages a 48x32 tile of
+ref and dist with the filter's halo in shared memory (8-bit luma as its
+bytes), runs the register-tiled column and row passes, the statistic, the
+next scale's decimation and, at scale 0, the motion blur of the core
+frames; a small launch blurs the chunk's halo frames and one more sums the
+SADs. With 8-bit codes every filter runs in uint32, wider codes widen only
+the products. What bounds it on the H100 is integer and f64 issue, not
+memory: PERF.md §6 has its time beside the bound.
 """
 
 from __future__ import annotations
@@ -39,20 +48,21 @@ from pqa2_tpu_torch.ops.vif_int import (
     STATS,
     log2_table_device,
     q11_log2_plain,
+    scale0_codes,
     vif_cascade,
     vif_int_scale_plain,
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_VIF_ARGS = [_P, _P, _I, _I, _I, _I, _I, _P, _P, ctypes.c_double,
-             ctypes.c_double, ctypes.c_longlong, _P, _P]
-_DEC_ARGS = [_P, _I, _I, _I, _I, _I, _P, _P, _P]
-_BLUR_ARGS = [_P, _I, _I, _I, _I, _P, _P, _P]
+_VIF_ARGS = [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, ctypes.c_double,
+             ctypes.c_double, ctypes.c_longlong, _P, _P, _P, _P, _I, _P]
+_BLUR_ARGS = [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]
 _SAD_ARGS = [_P, _I, _I, _I, _P, _P]
 _AUDIT_ARGS = [_P, _P, _P]
 
 _TAPS = {}
+_HOST_TAPS = {}
 
 
 def _taps(device: torch.device, key, values, dtype=np.int32) -> torch.Tensor:
@@ -64,6 +74,15 @@ def _taps(device: torch.device, key, values, dtype=np.int32) -> torch.Tensor:
     return _TAPS[k]
 
 
+def host_taps(key, values, ctype=ctypes.c_int):
+    """A filter table as a ctypes array in host memory: the launchers copy
+    it into the kernel's parameters."""
+    k = (key, ctype)
+    if k not in _HOST_TAPS:
+        _HOST_TAPS[k] = (ctype * len(values))(*np.asarray(values).tolist())
+    return _HOST_TAPS[k]
+
+
 def _check_device(t: torch.Tensor, name: str) -> Optional[torch.device]:
     """None for CPU tensors (plain version), the device for CUDA tensors;
     any other device raises."""
@@ -73,6 +92,30 @@ def _check_device(t: torch.Tensor, name: str) -> Optional[torch.device]:
         raise ValueError(f"{name} is on {t.device}: the kernel needs a CUDA "
                          f"tensor (or a CPU tensor for the plain version)")
     return t.device
+
+
+def _check_8bit(*planes: torch.Tensor) -> None:
+    """At in_q == 0 the kernel filters in uint32, exact for 8-bit codes
+    only: int32 planes must hold values in [0, 255] (one reduction, one
+    sync; uint8 planes need no check)."""
+    lims = torch.stack([torch.stack(t.aminmax()) for t in planes])
+    lo, hi = lims[:, 0].min().item(), lims[:, 1].max().item()
+    if lo < 0 or hi > 255:
+        raise ValueError(f"in_q 0 needs 8-bit codes; the planes hold {lo}..{hi}")
+
+
+def _frame_offset(ref: torch.Tensor, motion_ref: torch.Tensor) -> Optional[int]:
+    """Index of ref's first frame in motion_ref when ref is a run of
+    motion_ref's frames (a view of the same memory, as the core frames of
+    a chunk are), else None."""
+    if (ref.dtype != motion_ref.dtype
+            or ref.untyped_storage().data_ptr() != motion_ref.untyped_storage().data_ptr()):
+        return None
+    frame = ref[0].numel() * ref.element_size()
+    off, rem = divmod(ref.data_ptr() - motion_ref.data_ptr(), frame)
+    if rem or off < 0 or off + ref.shape[0] > motion_ref.shape[0]:
+        return None
+    return off
 
 
 def vif_int_scale(
@@ -88,55 +131,74 @@ def vif_int_scale(
     """One integer VIF scale. Same contract as
     :func:`pqa2_tpu_torch.ops.vif_int.vif_int_scale_plain`:
 
-    ref/dist (N, H, W) int32 contiguous codes (Q{in_q}, < 2^16) ->
-    ``(stats (N, 7) int64, next_ref, next_dist, sad)``."""
+    ref/dist (N, H, W) contiguous codes -> ``(stats (N, 7) int64, next_ref,
+    next_dist, sad)``. On the card the planes are int32 (Q{in_q}, < 2^16;
+    below 2^8 at in_q 0) or, at in_q 0, uint8 (the bytes the source
+    holds); ``motion_ref`` likewise. One launch computes the moments, the
+    statistic, the next scale's Q8 planes and, when ref's frames are a run
+    of motion_ref's frames (the core of a chunk), their motion blur; a
+    small launch blurs motion_ref's other frames and one more sums the
+    SADs."""
     device = _check_device(ref, "ref")
     if device is None:
         return vif_int_scale_plain(ref, dist, scale=scale, in_q=in_q,
                                    gain_limit=gain_limit, decimate=decimate,
                                    motion_ref=motion_ref)
-    _build.check_tensor(ref, "ref", torch.int32, 3, device)
-    _build.check_tensor(dist, "dist", torch.int32, 3, device)
+    if ref.dtype not in (torch.int32, torch.uint8):
+        raise TypeError(f"ref has dtype {ref.dtype}, expected torch.int32 or torch.uint8")
+    _build.check_tensor(ref, "ref", ref.dtype, 3, device)
+    _build.check_tensor(dist, "dist", ref.dtype, 3, device)
     if ref.shape != dist.shape:
         raise ValueError(f"ref {tuple(ref.shape)} != dist {tuple(dist.shape)}")
     if not 0 <= scale < 4 or (decimate and scale == 3):
         raise ValueError(f"bad scale {scale} (decimate={decimate})")
     if not 0 <= in_q <= 8:
         raise ValueError(f"in_q {in_q} outside [0, 8]")
+    if ref.dtype == torch.uint8 and in_q != 0:
+        raise ValueError(f"uint8 planes are 8-bit codes (in_q 0), not in_q {in_q}")
     n, h, w = ref.shape
     half = len(VIF_FILTERS_Q16[scale]) // 2
     if h <= half or w <= half:
         raise ValueError(f"{h}x{w} plane too small for the {2 * half + 1}-tap window")
+    if motion_ref is not None:
+        if motion_ref.dtype not in (torch.int32, torch.uint8):
+            raise TypeError(f"motion_ref has dtype {motion_ref.dtype}")
+        _build.check_tensor(motion_ref, "motion_ref", motion_ref.dtype, 3, device)
+        if tuple(motion_ref.shape[1:]) != (h, w):
+            raise ValueError("motion_ref frames differ in size from ref")
+        if motion_ref.dtype == torch.uint8 and in_q != 0:
+            raise ValueError(f"uint8 motion_ref is 8-bit codes (in_q 0), not in_q {in_q}")
+    if in_q == 0 and ref.dtype == torch.int32:
+        _check_8bit(ref, dist)
     with torch.cuda.device(device):
         st = _build.stream(device)
         stats = torch.zeros((n, len(STATS)), dtype=torch.int64, device=device)
+        next_ref = next_dist = sad = blurred = None
+        if decimate:
+            next_ref = torch.empty((n, (h + 1) // 2, (w + 1) // 2), dtype=torch.int32,
+                                   device=device)
+            next_dist = torch.empty_like(next_ref)
+        off = None
+        if motion_ref is not None:
+            m = motion_ref.shape[0]
+            # uint16 Q8 frames, kept in int16 storage.
+            blurred = torch.empty((m, h, w), dtype=torch.int16, device=device)
+            off = _frame_offset(ref, motion_ref) if half >= 2 else None
+        motion_taps = host_taps("motion", MOTION_FILTER_Q16)
         _build.launch(
             "pqa2_vif_scale", _VIF_ARGS,
-            _build.ptr(ref), _build.ptr(dist), n, h, w, in_q, half,
-            _build.ptr(_taps(device, ("vif", scale), VIF_FILTERS_Q16[scale])),
-            _build.ptr(log2_table_device(device)),
+            _build.ptr(ref), _build.ptr(dist), int(ref.dtype == torch.uint8), n, h, w,
+            in_q, half, host_taps(("vif", scale), VIF_FILTERS_Q16[scale]),
+            host_taps(("vif", scale + 1), VIF_FILTERS_Q16[scale + 1]) if decimate else None,
+            motion_taps, _build.ptr(log2_table_device(device)),
             float(gain_limit), float(VIF_INT_EPS), int(SIGMA_NSQ_Q16),
-            _build.ptr(stats), st)
-        next_ref = next_dist = sad = None
-        if decimate:
-            h2, w2 = (h + 1) // 2, (w + 1) // 2
-            taps = _taps(device, ("vif", scale + 1), VIF_FILTERS_Q16[scale + 1])
-            next_ref = torch.empty((n, h2, w2), dtype=torch.int32, device=device)
-            next_dist = torch.empty_like(next_ref)
-            for src, dst in ((ref, next_ref), (dist, next_dist)):
-                _build.launch("pqa2_vif_decimate", _DEC_ARGS, _build.ptr(src),
-                              n, h, w, in_q, len(VIF_FILTERS_Q16[scale + 1]) // 2,
-                              _build.ptr(taps), _build.ptr(dst), st)
+            _build.ptr(stats), _build.ptr(next_ref), _build.ptr(next_dist),
+            _build.ptr(blurred if off is not None else None), off or 0, st)
         if motion_ref is not None:
-            _build.check_tensor(motion_ref, "motion_ref", torch.int32, 3, device)
-            m = motion_ref.shape[0]
-            if tuple(motion_ref.shape[1:]) != (h, w):
-                raise ValueError("motion_ref frames differ in size from ref")
-            blurred = torch.empty_like(motion_ref)
+            lo, hi = (off, off + n) if off is not None else (0, 0)
             _build.launch("pqa2_motion_blur", _BLUR_ARGS, _build.ptr(motion_ref),
-                          m, h, w, in_q,
-                          _build.ptr(_taps(device, "motion", MOTION_FILTER_Q16)),
-                          _build.ptr(blurred), st)
+                          int(motion_ref.dtype == torch.uint8), m, h, w, in_q, lo, hi,
+                          motion_taps, _build.ptr(blurred), st)
             sad = torch.zeros((max(m - 1, 0),), dtype=torch.int64, device=device)
             if m > 1:
                 _build.launch("pqa2_motion_sad", _SAD_ARGS, _build.ptr(blurred),
@@ -158,10 +220,13 @@ def vif_motion_features_int(
 ):
     """(N, H, W) chunk luma (halos included) -> ``(vif (N_core, 4) f32,
     sad (N-1,) int64)``: VIF on the core frames, the motion SAD over every
-    frame (the driver of pqa2_tpu/ops/pallas_vif_int.py:1055)."""
-    return vif_cascade(ref[core], dist[core], gain_limit=gain_limit,
+    frame (the driver of pqa2_tpu/ops/pallas_vif_int.py:1055). The chunk
+    becomes codes once, so the core frames stay a view of it and the
+    scale-0 launch blurs them for the SAD."""
+    codes, _ = scale0_codes(ref, bit_depth)
+    return vif_cascade(codes[core], dist[core], gain_limit=gain_limit,
                        bit_depth=bit_depth, scale_fn=vif_int_scale,
-                       motion_ref=ref)
+                       motion_ref=codes)
 
 
 def _audit_plain(device: torch.device) -> torch.Tensor:

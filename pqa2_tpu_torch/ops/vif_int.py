@@ -54,6 +54,15 @@ def to_native_grid(x: torch.Tensor, bit_depth: int = 8) -> Tuple[torch.Tensor, i
     return x.to(torch.int32), in_q
 
 
+def scale0_codes(x: torch.Tensor, bit_depth: int = 8) -> Tuple[torch.Tensor, int]:
+    """Scale 0's input: 8-bit luma as it is (uint8, in_q 0: the kernel reads
+    the source's bytes and no uint8 -> int32 copy runs), anything else
+    through :func:`to_native_grid`."""
+    if x.dtype == torch.uint8 and bit_depth <= 8:
+        return x, 0
+    return to_native_grid(x, bit_depth)
+
+
 def _index(idx: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(idx, dtype=np.int64), device=device)
 
@@ -261,9 +270,9 @@ def vif_cascade(
     8-bit scale). ``motion_ref``: (M, H, W) reference luma of the whole
     chunk, halos included, for the motion SAD fused into scale 0.
     Returns ``(vif (N, 4) f32, sad (M-1,) int64 or None)``."""
-    r, in_q = to_native_grid(ref, bit_depth)
-    d, _ = to_native_grid(dist, bit_depth)
-    mref = (to_native_grid(motion_ref, bit_depth)[0].contiguous()
+    r, in_q = scale0_codes(ref, bit_depth)
+    d, _ = scale0_codes(dist, bit_depth)
+    mref = (scale0_codes(motion_ref, bit_depth)[0].contiguous()
             if motion_ref is not None else None)
     feats = []
     sad = None

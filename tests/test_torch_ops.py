@@ -504,6 +504,79 @@ def test_wrappers_use_plain_versions_on_cpu():
                       cuda_ssim.ssim_sse_plane.launches)
 
 
+def _edge_frames(h, w, depth):
+    """4 frames of codes in [0, 2^depth - 1]: all-peak against all-0 and the
+    reverse, a 0/peak checkerboard of single pixels and one of 8x8 blocks
+    against their inverses (uint8 at 8 bits, else int32)."""
+    peak = (1 << depth) - 1
+    yy, xx = np.indices((h, w))
+    c1 = ((yy + xx) % 2) * peak
+    c8 = ((yy // 8 + xx // 8) % 2) * peak
+    full, zero = np.full((h, w), peak), np.zeros((h, w), np.int64)
+    ref = np.stack([full, zero, c1, c8])
+    dist = np.stack([zero, full, peak - c1, peak - c8])
+    dt = np.uint8 if depth == 8 else np.int32
+    return ref.astype(dt), dist.astype(dt)
+
+
+@pytest.mark.parametrize("frame", [0, 2, 3], ids=["all-peak", "checkerboard", "8x8-blocks"])
+def test_vif_int_uint32_envelope(frame):
+    """The kernel filters 8-bit codes (in_q 0) in uint32: on the extreme
+    frames the plain version's largest vertical and horizontal tap sums
+    (rounding included) stay below 2^32. The same frames as 16-bit codes
+    take the products past 2^32 (the kernel widens those) while the mean
+    sums stay below it (the kernel keeps those in uint32)."""
+    from pqa2_tpu_torch.golden.fixedpoint import VIF_FILTERS_Q16 as taps_q16
+    from pqa2_tpu_torch.ops.vif_int import _filt
+
+    taps = taps_q16[0]
+    for depth in (8, 16):
+        x = torch.from_numpy(_edge_frames(72, 96, depth)[0][frame:frame + 1]).long()
+        vs = depth  # 8 + in_q
+        vert_mu = _filt(x, taps, -2, 0).max().item() + (1 << (vs - 1))
+        vert_xx = _filt(x * x, taps, -2, 0).max().item() + (1 << 15)
+        hor_mu = _filt(_filt(x, taps, -2, vs), taps, -1, 0).max().item()
+        hor_xx = _filt(_filt(x * x, taps, -2, 16), taps, -1, 0).max().item()
+        assert max(vert_mu, hor_mu) < 2 ** 32
+        if depth == 8:
+            assert max(vert_xx, hor_xx) < 2 ** 32
+        else:
+            assert min(vert_xx, hor_xx) >= 2 ** 32
+
+
+def test_vif_int_scale_uint8_equals_int32():
+    """uint8 planes (the source's bytes, in_q 0) give what int32 codes give,
+    statistic, decimated planes and SAD."""
+    from pqa2_tpu_torch.ops.cuda_vif_int import vif_int_scale
+
+    ref, dist = _smooth_pair(14, 3, 40, 56)
+    e_r, e_d = _edge_frames(40, 56, 8)
+    r8 = torch.from_numpy(np.concatenate([ref, e_r]))
+    d8 = torch.from_numpy(np.concatenate([dist, e_d]))
+    r32, d32 = r8.to(torch.int32), d8.to(torch.int32)
+    kw = dict(scale=0, in_q=0, gain_limit=float("inf"), decimate=True)
+    got = vif_int_scale(r8[1:6], d8[1:6], motion_ref=r8, **kw)
+    want = vif_int_scale(r32[1:6], d32[1:6], motion_ref=r32, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_vif_int_core_frames_are_found_in_the_chunk():
+    """The scale-0 launch blurs the core frames for the SAD when they are a
+    run of the chunk's frames; 8-bit luma reaches it as it is."""
+    from pqa2_tpu_torch.ops.cuda_vif_int import _frame_offset
+    from pqa2_tpu_torch.ops.vif_int import scale0_codes
+
+    x = torch.zeros((5, 4, 6), dtype=torch.uint8)
+    assert [_frame_offset(x[a:b], x) for a, b in ((0, 5), (1, 4), (4, 5))] == [0, 1, 4]
+    assert _frame_offset(x[1:4].clone(), x) is None
+    assert _frame_offset(x[1:4].to(torch.int32), x) is None
+    codes, in_q = scale0_codes(x, 8)
+    assert codes is x and in_q == 0
+    codes, in_q = scale0_codes(x.float() * 4.0, 10)
+    assert codes.dtype == torch.int32 and in_q == 2
+
+
 def test_pad_frames_and_iter_chunks():
     from pqa2_tpu_torch.pipeline.scoring import iter_chunks, pool_metric
     from pqa2_tpu_torch.utils.chunking import pad_frames
@@ -561,6 +634,80 @@ def test_kernel_vif_int_scale_matches_plain(cuda_device):
         for a, b in zip(got, want):
             assert (a is None and b is None) or torch.equal(a, b)
         r, d, in_q = got[1], got[2], 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth,kind", [(8, "uint8"), (8, "int32"), (10, "int32"),
+                                        (16, "int32")])
+def test_kernel_vif_int_scale_edges(cuda_device, depth, kind):
+    """Kernel 1 at the edges of its arithmetic (uint32 filters at 8 bits,
+    the widening path at 10 and 16 bits, the largest codes), 1080p and
+    3840x2160, all four scales with the motion SAD: equal to the plain
+    version."""
+    from pqa2_tpu_torch.ops.cuda_vif_int import vif_int_scale
+    from pqa2_tpu_torch.ops.vif_int import vif_int_scale_plain
+
+    for h, w in ((1080, 1920), (2160, 3840)):
+        ref, dist = _edge_frames(h, w, depth)
+        dt = torch.uint8 if kind == "uint8" else torch.int32
+        r = torch.from_numpy(ref).to(cuda_device, dt)
+        d = torch.from_numpy(dist).to(cuda_device, dt)
+        m, in_q = r, max(depth - 8, 0)
+        for scale in range(4):
+            kw = dict(scale=scale, in_q=in_q, gain_limit=float("inf"), decimate=scale < 3,
+                      motion_ref=m if scale == 0 else None)
+            got = vif_int_scale(r, d, **kw)
+            want = vif_int_scale_plain(r, d, **kw)
+            for a, b in zip(got, want):
+                assert (a is None and b is None) or torch.equal(a, b)
+            r, d, in_q = got[1], got[2], 8
+
+
+@pytest.mark.cuda
+def test_kernel_vif_int_scale_uint8_chunk(cuda_device):
+    """The main path's scale-0 call: uint8 luma, the core frames a view of
+    the chunk (their motion blur in the same launch, the halos apart)."""
+    from pqa2_tpu_torch.ops.cuda_vif_int import vif_int_scale
+    from pqa2_tpu_torch.ops.vif_int import vif_int_scale_plain
+
+    ref, dist = _smooth_pair(15, 6, 135, 241)
+    m = torch.from_numpy(ref).to(cuda_device)
+    d = torch.from_numpy(dist).to(cuda_device)
+    for core in (slice(1, 5), slice(0, 5), slice(5, 6)):
+        kw = dict(scale=0, in_q=0, gain_limit=float("inf"), decimate=True, motion_ref=m)
+        got = vif_int_scale(m[core], d[core], **kw)
+        want = vif_int_scale_plain(m[core], d[core], **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [8, 10, 16])
+def test_kernel_vif_scale_edges(cuda_device, depth):
+    """Kernel 5 on kernel 1's edge frames as f32 on the 8-bit scale, 1080p
+    and 3840x2160, both statistics, gain inf and 1.0: decimated planes equal
+    in every bit, num/den within 1e-5 relative."""
+    from pqa2_tpu_torch.ops.cuda_vif import vif_scale
+    from pqa2_tpu_torch.ops.vif import vif_scale_plain
+
+    for h, w in ((1080, 1920), (2160, 3840)):
+        ref, dist = _edge_frames(h, w, depth)
+        div = float(1 << (depth - 8))
+        ref = torch.from_numpy(ref.astype(np.float32) / div).to(cuda_device)
+        dist = torch.from_numpy(dist.astype(np.float32) / div).to(cuda_device)
+        for variant in ("classic", "default"):
+            for gain in (float("inf"), 1.0):
+                r, d = ref, dist
+                for scale in range(4):
+                    kw = dict(scale=scale, gain_limit=gain, variant=variant,
+                              emit_next=scale < 3)
+                    got = vif_scale(r, d, **kw)
+                    want = vif_scale_plain(r, d, **kw)
+                    for a, b in zip(got[:2], want[:2]):
+                        torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
+                    for a, b in zip(got[2:4], want[2:4]):
+                        assert (a is None and b is None) or torch.equal(a, b)
+                    r, d = got[2], got[3]
 
 
 @pytest.mark.cuda
