@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                  # needs one sm_90 card
     python3 chip_smoke.py --profile DIR    # plus torch.profiler passes
-    python3 chip_smoke.py --sass DIR       # plus the VIF kernels' SASS opcodes
+    python3 chip_smoke.py --sass DIR       # plus the VIF and ADM kernels' SASS opcodes
 
 Phases, run in the order 1, 3, 2, 4 so that the slices run in a process
 that has done nothing else yet, as a user's does (each prints its lines;
@@ -19,14 +19,19 @@ any failure raises and the exit code is 1):
      one 4096x4096 pair for VIF and ADM. Integer outputs must be equal;
      SSIM within 1e-6; the log2 audit 0 mismatches. The float kernels (VIF
      with the classic statistic, gain inf and 1.0; ADM, gain 100 and 1.0;
-     the motion SAD) on the 1080p chunk and a 3840x2160 pair: decimated and
-     approximation planes equal in every bit, per-frame sums within 1e-5
-     relative, features within 1e-5, and a second launch on the same input
-     gives the same bits. Both VIF kernels also on edge frames at 1080p and
+     the motion SAD) on the 1080p chunk and a 3840x2160 pair (ADM also on
+     a 4096x4096 one): decimated and approximation planes equal in every
+     bit, per-frame sums within 1e-5 relative, features within 1e-5, and a
+     second launch on the same input gives the same bits. Both VIF kernels also on edge frames at 1080p and
      3840x2160 (all-peak against all-0 and the reverse, 0/peak
      checkerboards of single pixels and of 8x8 blocks against their
      inverses) at 8 bits (integer VIF on uint8 and int32), 10 and 16 bits
-     (the largest codes; float VIF on the 8-bit scale, both statistics);
+     (the largest codes; float VIF on the 8-bit scale, both statistics).
+     Integer ADM on uint8 luma (the core frames a slice of the chunk, as
+     the main path hands them over) and int32 Q4 codes, at gain 100 and
+     1.0, and on the same edge frames at 8, 10, 12 and 16 bits; float ADM
+     on the edge frames as f32 on the 8-bit scale, gain 100 and 1.0. The
+     audit of integer ADM's quotient routine: 0 mismatches;
   3. the slices: a synthetic 1920x1080 4:2:0 y4m pair of 72 frames through
      ``VMAFAnalyzer(device="cuda").analyze_videos``, once with
      ``vmaf_v0.6.1`` (the integer family) and once with
@@ -39,7 +44,8 @@ any failure raises and the exit code is 1):
      each kernel's bound (the least time the card could take for the same
      work), and each slice's frames per second: its first run and three
      warm runs. With --profile, torch.profiler over one more warm run of
-     each slice and over three scale-0 calls of each VIF kernel.
+     each slice and over three scale-0 or level-0 calls of each VIF and
+     ADM kernel.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX and
@@ -222,22 +228,32 @@ def phase_kernels(torch, device, results):
         log(f"[kernels] vif_int_scale {label}: LUT accumulators, decimated planes"
             f"{' and SAD' if mref is not None else ''} equal at all 4 scales")
 
-    def adm_all_levels(ref, dist, label):
-        r, drop = level_input(ref, 8)
-        d, _ = level_input(dist, 8)
-        for lvl in range(4):
-            if lvl:
-                drop = ADM_BAND_Q[lvl - 1] - ADM_BAND_Q[lvl]
-            kw = dict(level=lvl, extra_row_shift=drop, gain_limit=100.0)
-            got = cuda_adm_int.adm_int_level(r, d, **kw)
-            want = adm_level_plain(r, d, **kw)
-            for nm, a, b in zip(("cube sums", "ref approx", "dist approx"), got, want):
-                err["adm_int_level"] = max(err["adm_int_level"], check_equal(
-                    torch, f"adm {label} level {lvl} {nm}", a, b))
-            torch.cuda.synchronize()
-            del want
-            r, d = got[1], got[2]
-        log(f"[kernels] adm_int_level {label}: pooled cube sums and approximation "
+    def adm_all_levels(ref, dist, label, depth=8, kinds=("uint8", "int32"),
+                       gains=(100.0, 1.0)):
+        """Kernel 3 at all four levels from luma (uint8 at 8 bits, else
+        int32 codes): on the level-0 input the main path hands over (8-bit
+        luma as it is) and on int32 Q4 codes."""
+        for kind in kinds:
+            src_r = ref if kind == "uint8" else ref.to(torch.int32)
+            src_d = dist if kind == "uint8" else dist.to(torch.int32)
+            r0, drop0 = level_input(src_r, depth)
+            d0, _ = level_input(src_d, depth)
+            for gain in gains:
+                r, d, drop = r0, d0, drop0
+                for lvl in range(4):
+                    if lvl:
+                        drop = ADM_BAND_Q[lvl - 1] - ADM_BAND_Q[lvl]
+                    kw = dict(level=lvl, extra_row_shift=drop, gain_limit=gain)
+                    got = cuda_adm_int.adm_int_level(r, d, **kw)
+                    want = adm_level_plain(r, d, **kw)
+                    for nm, a, b in zip(("cube sums", "ref approx", "dist approx"), got, want):
+                        err["adm_int_level"] = max(err["adm_int_level"], check_equal(
+                            torch, f"adm {label} {kind} gain {gain} level {lvl} {nm}", a, b))
+                    torch.cuda.synchronize()
+                    del want
+                    r, d = got[1], got[2]
+        log(f"[kernels] adm_int_level {label} ({'/'.join(kinds)}, gain "
+            f"{'/'.join(f'{g:g}' for g in gains)}): pooled cube sums and approximation "
             f"planes equal at all 4 levels")
 
     # 1080p chunk: 32 core frames with a halo frame on each side, as the
@@ -248,7 +264,7 @@ def phase_kernels(torch, device, results):
     for kind, (cr, cd) in (("uint8", (ref, dist)),
                            ("int32", (to_native_grid(ref, 8)[0], to_native_grid(dist, 8)[0]))):
         vif_all_scales(cr[1:33], cd[1:33], cr, 0, f"1080p 32+2 frames {kind}")
-    adm_all_levels(ref[1:33], dist[1:33], "1080p 32 frames")
+    adm_all_levels(ref[1:33], dist[1:33], "1080p 32 core frames of the chunk")
     for label, (h, w) in (("3840x2160", (2160, 3840)), ("4096x4096", (4096, 4096))):
         r1 = smooth_frames(torch, 1, h, w, 3, device)
         d1 = distort(torch, r1, 4)
@@ -256,7 +272,8 @@ def phase_kernels(torch, device, results):
         adm_all_levels(r1, d1, label)
         del r1, d1
     # The edges of kernel 1's arithmetic: uint32 filters at 8 bits, the
-    # widening path at 10 and 16 bits, at the largest codes.
+    # widening path at 10 and 16 bits, at the largest codes; and of kernel
+    # 3's: an int32 DWT up to 12 bits, level 0's row pass widened at 16.
     for label, (h, w) in (("1080p", (1080, 1920)), ("3840x2160", (2160, 3840))):
         for depth, kind in ((8, "uint8"), (8, "int32"), (10, "int32"), (16, "int32")):
             r1, d1 = edge_frames(torch, h, w, depth, device)
@@ -264,6 +281,15 @@ def phase_kernels(torch, device, results):
                 r1, d1 = r1.to(torch.int32), d1.to(torch.int32)
             vif_all_scales(r1, d1, r1, max(depth - 8, 0), f"edges {label} {depth}-bit {kind}")
             del r1, d1
+        for depth in (8, 10, 12, 16):
+            r1, d1 = edge_frames(torch, h, w, depth, device)
+            adm_all_levels(r1, d1, f"edges {label} {depth}-bit", depth,
+                           kinds=("uint8", "int32") if depth == 8 else ("int32",))
+            del r1, d1
+    mism = cuda_adm_int.quotient_audit(device)
+    log(f"[kernels] adm_int_level quotient audit: {mism} mismatches over every "
+        f"(|t| << 15) / |o| with |t| < |o| <= {cuda_adm_int.QUOTIENT_OA_MAX} and the "
+        f"directed numerators q*|o|, q*|o| - 1, q*|o| + |o| - 1 of every q < 2^15")
     for k, v in err.items():
         results[k]["max_abs_err"] = v
 
@@ -289,7 +315,8 @@ def phase_kernels(torch, device, results):
 
 def phase_float_kernels(torch, device, results, ref, dist):
     """Phase 2, float family: kernels 5-7 against their plain versions on
-    the 1080p chunk and a 3840x2160 pair."""
+    the 1080p chunk and a 3840x2160 pair (kernel 6 also on a 4096x4096
+    one)."""
     from pqa2_tpu_torch.ops import cuda_adm, cuda_motion, cuda_vif
     from pqa2_tpu_torch.ops.adm import adm_from_level_sums, adm_level_plain_float
     from pqa2_tpu_torch.ops.motion import motion_sad_plain
@@ -371,6 +398,14 @@ def phase_float_kernels(torch, device, results, ref, dist):
             del r1, d1
     for gain in (100.0, 1.0):
         adm_all_levels(rf, df, "1080p 32 frames", gain)
+    # Kernel 3's edge frames, as f32 on the 8-bit scale.
+    for label, (h, w) in (("1080p", (1080, 1920)), ("3840x2160", (2160, 3840))):
+        for depth in (8, 10, 12, 16):
+            r1, d1 = edge_frames(torch, h, w, depth, device)
+            r1, d1 = r1.float() / (1 << (depth - 8)), d1.float() / (1 << (depth - 8))
+            for gain in (100.0, 1.0):
+                adm_all_levels(r1, d1, f"edges {label} {depth}-bit", gain)
+            del r1, d1
     check_bits(torch, "motion_sad (second launch)", cuda_motion.motion_sad(mf),
                cuda_motion.motion_sad(mf))
     del rf, df, mf
@@ -379,7 +414,13 @@ def phase_float_kernels(torch, device, results, ref, dist):
     r1 = r1.float()
     vif_all_scales(r1[1:], d1[1:], r1, "3840x2160", float("inf"))
     vif_all_scales(r1[1:], d1[1:], None, "3840x2160", 1.0)
-    adm_all_levels(r1[1:], d1[1:], "3840x2160", 100.0)
+    for gain in (100.0, 1.0):
+        adm_all_levels(r1[1:], d1[1:], "3840x2160", gain)
+    r1 = smooth_frames(torch, 1, 4096, 4096, 7, device)
+    d1 = distort(torch, r1, 8).float()
+    r1 = r1.float()
+    for gain in (100.0, 1.0):
+        adm_all_levels(r1, d1, "4096x4096", gain)
     del r1, d1
     for k, v in err.items():
         results[k]["max_abs_err"] = v
@@ -460,8 +501,10 @@ def phase_times(torch, device, results, ref, dist, card, profile_dir=None):
     mi = to_native_grid(ref, 8)[0]
     ri, di = mi[1:33], to_native_grid(dist[1:33], 8)[0]
     kwi = dict(kw, motion_ref=mi)
-    ra, _ = level_input(ref[1:33], 8)
-    da, _ = level_input(dist[1:33], 8)
+    # Integer ADM's row figure: int32 Q4 codes, as the parent took them;
+    # the main path's uint8 call is timed beside it.
+    ra, _ = level_input(ref[1:33].to(torch.int32), 8)
+    da, _ = level_input(dist[1:33].to(torch.int32), 8)
     akw = dict(level=0, extra_row_shift=0, gain_limit=100.0)
     rl, dl, ml = ref[1:33].float(), dist[1:33].float(), ref.float()
     fkw = dict(scale=0, gain_limit=float("inf"), variant="classic", emit_next=True)
@@ -475,7 +518,8 @@ def phase_times(torch, device, results, ref, dist, card, profile_dir=None):
                              "32768 mantissas x 2", work("log2_table_audit", 0, 0, 0)),
         "adm_int_level": (lambda: cuda_adm_int.adm_int_level(ra, da, **akw),
                           lambda: adm_level_plain(ra, da, **akw),
-                          "level 0, 32 frames, 1080p", work("adm_int_level", n, h, w)),
+                          "level 0, 32 frames, 1080p, int32 Q4 codes",
+                          work("adm_int_level", n, h, w)),
         "ssim_sse_plane": (lambda: cuda_ssim.ssim_sse_plane(rl, dl, 8),
                            lambda: ssim_sse_plane_plain(rl, dl, 8),
                            "32 frames, 1080p luma", work("ssim_sse_plane", n, h, w)),
@@ -500,8 +544,11 @@ def phase_times(torch, device, results, ref, dist, card, profile_dir=None):
             f"[{card}]")
     i_ms = time_call(torch, lambda: cuda_vif_int.vif_int_scale(ri, di, **kwi), 10)
     log(f"[times] vif_int_scale (the same call on int32 codes): kernel {i_ms:.3f} ms [{card}]")
+    u_ms = time_call(torch, lambda: cuda_adm_int.adm_int_level(r, d, **akw), 10)
+    log(f"[times] adm_int_level (the same call on the chunk's uint8 luma, as the main "
+        f"path hands it over): kernel {u_ms:.3f} ms [{card}]")
     if profile_dir:
-        for name in ("vif_int_scale", "vif_scale"):
+        for name in ("vif_int_scale", "vif_scale", "adm_int_level", "adm_level"):
             fn = cases[name][0]
             profile_run(torch, lambda: [fn() for _ in range(3)], profile_dir, card,
                         f"{name}_3_calls")
@@ -743,9 +790,14 @@ def profile_run(torch, run, out_dir, card, label):
             f"{e.count} calls  {e.key[:70]}")
 
 
+SASS_KERNELS = ("vif_int_scale_kernel", "vif_scale_f32_kernel", "adm_int_level_kernel",
+                "adm_level_f32_kernel")
+
+
 def sass_report(build, out_dir):
     """cuobjdump -sass of the kernel library into ``out_dir``; prints each
-    VIF scale kernel's instruction count and its most frequent opcodes."""
+    VIF scale and ADM level kernel's instruction count, its most frequent
+    opcodes and the subroutines it calls (a 64-bit division would be one)."""
     import collections
     import re
 
@@ -756,19 +808,40 @@ def sass_report(build, out_dir):
     with open(os.path.join(out_dir, "libpqa2_kernels.sass"), "w") as f:
         f.write(sass)
     ops = collections.defaultdict(collections.Counter)
+    code = collections.defaultdict(list)  # function -> [(address, opcode, operands)]
     fn = None
-    insn = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+    insn = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
         elif fn:
             m = insn.search(line)
             if m:
-                ops[fn][m.group(1)] += 1
+                ops[fn][m.group(2)] += 1
+                code[fn].append((int(m.group(1), 16), m.group(2), m.group(3).strip()))
     for fn, cnt in sorted(ops.items()):
-        if "vif_int_scale_kernel" in fn or "vif_scale_f32_kernel" in fn:
-            top = ", ".join(f"{k} {v}" for k, v in cnt.most_common(14))
-            log(f"[sass] {fn[:90]}: {sum(cnt.values())} instructions; {top}")
+        if not any(k in fn for k in SASS_KERNELS):
+            continue
+        top = ", ".join(f"{k} {v}" for k, v in cnt.most_common(14))
+        log(f"[sass] {fn[:90]}: {sum(cnt.values())} instructions; {top}")
+        # Each subroutine called, by the opcodes of its body (up to its RET):
+        # a 64-bit integer division converts its 64-bit divisor (I2F.*64*).
+        targets = collections.Counter(int(a, 16) for _, op, a in code[fn]
+                                      if op.startswith("CALL") and a.startswith("0x"))
+        divs = 0
+        for addr, n in sorted(targets.items()):
+            body = []
+            for a, op, _ in code[fn]:
+                if a >= addr:
+                    body.append(op)
+                    if op.startswith("RET"):
+                        break
+            div64 = any(op.startswith("I2F") and "64" in op for op in body)
+            divs += div64
+            log(f"[sass]   calls {hex(addr)} x{n}"
+                f"{' (64-bit integer division)' if div64 else ''}: {len(body)} instructions, "
+                + ", ".join(f"{k} {v}" for k, v in collections.Counter(body).most_common(6)))
+        log(f"[sass]   subroutines: {len(targets)}; 64-bit integer division routines: {divs}")
 
 
 def main(argv=None) -> int:
@@ -777,7 +850,7 @@ def main(argv=None) -> int:
                     help="also profile one warm run of each slice; tables go to DIR")
     ap.add_argument("--sass", metavar="DIR", default=None,
                     help="also write the library's SASS to DIR and print the opcode "
-                         "counts of the VIF scale kernels")
+                         "counts of the VIF scale and ADM level kernels")
     args = ap.parse_args(argv)
 
     import torch

@@ -14,7 +14,11 @@ the int64 oracle ``pqa2_tpu/golden/adm_int.py`` directly:
     (``adm_cube_shift`` keeps each sum below 2^63).
 
 A level produces six int64 sums per frame, shaped (N, 3, 2) as bands h/v/d
-x num/den; the kernel emits exactly these. The f32 tail runs on the host in
+x num/den; the kernel emits exactly these. Level 0 takes 8-bit luma as
+uint8 and shifts it to Q4 itself (:func:`level_codes`), so the main path
+runs no conversion pass before the kernel. :func:`dwt_envelope` bounds the
+DWT's accumulators per level from the input's range: the kernel runs a pass
+in int32 where the bound is below 2^31. The f32 tail runs on the host in
 numpy (:func:`adm_from_digit_sums`): torch has no ``cbrt``, and this is the
 oracle's own arithmetic (golden/adm_int.py:270-300).
 
@@ -24,6 +28,7 @@ Trap 5: bands are signed. ``>>`` on int64 tensors is an arithmetic shift
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Tuple
 
 import numpy as np
@@ -57,9 +62,8 @@ def band_geometry(h: int, w: int):
     return h2, w2, th, tw, adm_cube_shift((h2 - 2 * th) * (w2 - 2 * tw))
 
 
-def _dwt1d(x: torch.Tensor, taps: np.ndarray, dim: int,
-           extra_shift: int = 0) -> torch.Tensor:
-    """out[i] = (sum_f q15[f] * x[sym(2i-1+f)] + 2^(14+e)) >> (15+e)."""
+def dwt1d_acc(x: torch.Tensor, taps: np.ndarray, dim: int) -> torch.Tensor:
+    """The accumulator of a 1-D pass: sum_f q15[f] * x[sym(2i-1+f)]."""
     n = x.shape[dim]
     n2 = (n + 1) // 2
     js = symmetric_index(2 * np.arange(n2)[None, :] - 1 + np.arange(4)[:, None], n)
@@ -68,8 +72,14 @@ def _dwt1d(x: torch.Tensor, taps: np.ndarray, dim: int,
         idx = torch.as_tensor(js[t], dtype=torch.int64, device=x.device)
         term = x.index_select(dim, idx) * int(taps[t])
         acc = term if acc is None else acc + term
+    return acc
+
+
+def _dwt1d(x: torch.Tensor, taps: np.ndarray, dim: int,
+           extra_shift: int = 0) -> torch.Tensor:
+    """out[i] = (sum_f q15[f] * x[sym(2i-1+f)] + 2^(14+e)) >> (15+e)."""
     s = 15 + extra_shift
-    return (acc + (1 << (s - 1))) >> s
+    return (dwt1d_acc(x, taps, dim) + (1 << (s - 1))) >> s
 
 
 def dwt2_int_batched(x: torch.Tensor, extra_row_shift: int = 0) -> Dict[str, torch.Tensor]:
@@ -82,6 +92,92 @@ def dwt2_int_batched(x: torch.Tensor, extra_row_shift: int = 0) -> Dict[str, tor
         "h": _dwt1d(hi_r, DB2_LO_Q15, -1),
         "d": _dwt1d(hi_r, DB2_HI_Q15, -1),
     }
+
+
+# Level 0's input codes lie in [0, 2^(LEVEL0_BITS + extra_row_shift)): Q4
+# codes of depths up to 12 (8-bit luma as uint8, shifted as it is read), the
+# native codes of depths 13-16.
+LEVEL0_BITS = 12
+INT32_LIMIT = 1 << 31
+
+
+def _acc_range(iv, taps) -> Tuple[int, int]:
+    """(least, largest) accumulator of one 1-D pass over inputs in iv."""
+    lo, hi = iv
+    return (sum(int(t) * (lo if t > 0 else hi) for t in taps),
+            sum(int(t) * (hi if t > 0 else lo) for t in taps))
+
+
+def _rounded(iv, s: int) -> Tuple[int, int]:
+    return tuple((v + (1 << (s - 1))) >> s for v in iv)
+
+
+def _level_ranges(iv, extra_row_shift: int):
+    """One level over inputs in iv -> (largest |row-pass accumulator|,
+    largest |column-pass accumulator|, both with their rounding added; the
+    approximation band's range; the largest |h|, |v|, |d|)."""
+    s = 15 + extra_row_shift
+    rows = [_acc_range(iv, taps) for taps in (DB2_LO_Q15, DB2_HI_Q15)]
+    cols = [_acc_range(_rounded(r, s), taps) for r in rows
+            for taps in (DB2_LO_Q15, DB2_HI_Q15)]  # a, v, h, d
+    bands = [_rounded(c, 15) for c in cols]
+    return (max(max(-a, b) for a, b in rows) + (1 << (s - 1)),
+            max(max(-a, b) for a, b in cols) + (1 << 14),
+            bands[0], max(max(-a, b) for a, b in bands[1:]))
+
+
+@functools.lru_cache(maxsize=None)
+def dwt_envelope(level: int, extra_row_shift: int) -> Tuple[int, int, int]:
+    """Bounds of one level's integer DWT over every input of its envelope:
+    ``(row, column, band)``, the largest |accumulator| of the row and of the
+    column pass with its rounding added, and the largest |h|, |v|, |d|.
+
+    Level 0's inputs are codes in [0, 2^(12 + extra_row_shift)); a later
+    level's are the approximation bands the levels before it give from
+    level-0 codes of any depth up to 16. The ranges follow by interval
+    arithmetic over the Q15 taps, a constant of the level like
+    ``adm_cube_shift``. Every input range holds 0, so every partial sum of a
+    pass lies inside its total's range."""
+    if level == 0:
+        ivs = [(0, (1 << (LEVEL0_BITS + extra_row_shift)) - 1)]
+    else:
+        ivs = []
+        for extra0 in range(5):  # depths 8..16
+            iv, drop = (0, (1 << (LEVEL0_BITS + extra0)) - 1), extra0
+            for lvl in range(level):
+                iv = _level_ranges(iv, drop)[2]
+                drop = ADM_BAND_Q[lvl] - ADM_BAND_Q[lvl + 1]
+            ivs.append(iv)
+    iv = (min(a for a, _ in ivs), max(b for _, b in ivs))
+    assert iv[0] <= 0 <= iv[1], iv
+    row, col, _, band = _level_ranges(iv, extra_row_shift)
+    return row, col, band
+
+
+def dwt_wide_passes(level: int, extra_row_shift: int) -> Tuple[bool, bool]:
+    """(row, column): whether each DWT pass of the level needs 64-bit
+    accumulators (the kernel runs the other passes in int32)."""
+    row, col, _ = dwt_envelope(level, extra_row_shift)
+    return row >= INT32_LIMIT, col >= INT32_LIMIT
+
+
+def is_luma8(x: torch.Tensor, level: int, extra_row_shift: int) -> bool:
+    """Whether a level's input is 8-bit luma (uint8), which only level 0
+    takes; raises for uint8 anywhere else."""
+    if x.dtype != torch.uint8:
+        return False
+    if level != 0 or extra_row_shift != 0:
+        raise ValueError(f"uint8 planes are 8-bit luma for level 0, not level {level} "
+                         f"with extra_row_shift {extra_row_shift}")
+    return True
+
+
+def level_codes(x: torch.Tensor, level: int, extra_row_shift: int) -> torch.Tensor:
+    """A level's input as int64 codes: 8-bit luma shifted up to Q4 here (the
+    kernel shifts as it reads), int32 planes as they are."""
+    if is_luma8(x, level, extra_row_shift):
+        return x.long() << ADM_BAND_Q[0]
+    return x.long()
 
 
 def _f32(v: float) -> torch.Tensor:
@@ -163,12 +259,14 @@ def adm_level_plain(
 ):
     """One ADM level, the plain twin of the ``adm_int_level`` kernel.
 
-    ref/dist: (N, H, W) int32 approximation planes (Q4 codes at level 0).
-    Returns ``(sums (N, 3, 2) int64, ref_a, dist_a)``: the cube sums of the
-    masked restoration (num) and of |icsf(ref band)| (den) for bands
-    h/v/d, and the next level's int32 approximation planes."""
-    o = dwt2_int_batched(ref.long(), extra_row_shift)
-    t = dwt2_int_batched(dist.long(), extra_row_shift)
+    ref/dist: (N, H, W) int32 approximation planes (codes at level 0, see
+    :func:`level_input`), or at level 0 uint8 8-bit luma (shifted to Q4 by
+    :func:`level_codes`). Returns ``(sums (N, 3, 2) int64, ref_a, dist_a)``:
+    the cube sums of the masked restoration (num) and of |icsf(ref band)|
+    (den) for bands h/v/d, and the next level's int32 approximation
+    planes."""
+    o = dwt2_int_batched(level_codes(ref, level, extra_row_shift), extra_row_shift)
+    t = dwt2_int_batched(level_codes(dist, level, extra_row_shift), extra_row_shift)
     rst, add = decouple_int_batched(o, t, gain_limit)
     irf, _ = ADM_TAIL_TABLES[level]
     icsf_a = {b: _icsf(add[b], irf[i]) for i, b in enumerate(BANDS)}
@@ -185,9 +283,13 @@ def adm_level_plain(
 
 
 def level_input(x: torch.Tensor, bit_depth: int) -> Tuple[torch.Tensor, int]:
-    """Luma -> (level-0 int32 input, level-0 extra row shift): native codes
-    shifted up to Q4, or folded into level 0's first rounding for depths
-    past 12 (golden/adm_int.py:dwt_pyramid_int)."""
+    """Luma -> (level-0 input, level-0 extra row shift). 8-bit luma stays as
+    it is (uint8: level 0 shifts it to Q4 as it reads it, so no uint8 ->
+    int32 copy and no shift pass runs); anything else becomes int32 native
+    codes shifted up to Q4, or with the shift folded into level 0's first
+    rounding for depths past 12 (golden/adm_int.py:dwt_pyramid_int)."""
+    if x.dtype == torch.uint8 and bit_depth <= 8:
+        return x.contiguous(), 0
     codes, in_q = to_native_grid(x, bit_depth)
     return (codes << max(ADM_BAND_Q[0] - in_q, 0)).contiguous(), max(in_q - ADM_BAND_Q[0], 0)
 

@@ -577,6 +577,110 @@ def test_vif_int_core_frames_are_found_in_the_chunk():
     assert codes.dtype == torch.int32 and in_q == 2
 
 
+@pytest.mark.parametrize("depth", [8, 10, 12, 16])
+def test_adm_int_int32_envelope(depth):
+    """The kernel runs a DWT pass in int32 where ops/adm_int.py:dwt_envelope
+    bounds its accumulators below 2^31. On the edge frames, over all four
+    levels, the plain version's largest accumulator (rounding included)
+    stays within the envelope's bound, and below 2^31 in every pass the
+    envelope keeps in int32; at 16 bits level 0's row pass passes 2^31, and
+    the envelope widens it."""
+    from pqa2_tpu_torch.golden.fixedpoint import DB2_HI_Q15, DB2_LO_Q15
+    from pqa2_tpu_torch.ops.adm_int import (
+        INT32_LIMIT,
+        _dwt1d,
+        dwt1d_acc,
+        dwt2_int_batched,
+        dwt_envelope,
+        dwt_wide_passes,
+        level_codes,
+        level_input,
+    )
+
+    taps = (DB2_LO_Q15, DB2_HI_Q15)
+    over = set()
+    for plane in _edge_frames(72, 96, depth):
+        cur, drop = level_input(torch.from_numpy(plane), depth)
+        for lvl in range(4):
+            if lvl:
+                drop = ADM_BAND_Q[lvl - 1] - ADM_BAND_Q[lvl]
+            x = level_codes(cur, lvl, drop)
+            s = 15 + drop
+            row = max(dwt1d_acc(x, f, -2).abs().max().item() for f in taps) + (1 << (s - 1))
+            mids = [_dwt1d(x, f, -2, drop) for f in taps]
+            col = max(dwt1d_acc(m, f, -1).abs().max().item()
+                      for m in mids for f in taps) + (1 << 14)
+            env_row, env_col, _ = dwt_envelope(lvl, drop)
+            assert row <= env_row and col <= env_col
+            for got, wide, name in zip((row, col), dwt_wide_passes(lvl, drop), ("row", "col")):
+                if not wide:
+                    assert got < INT32_LIMIT, (lvl, name, got)
+                elif got >= INT32_LIMIT:
+                    over.add((lvl, name))
+            cur = dwt2_int_batched(x, drop)["a"].to(torch.int32)
+    assert ((0, "row") in over) == (depth == 16)
+
+
+def test_adm_int_level0_uint8_equals_int32():
+    """Level 0 on uint8 8-bit luma (shifted to Q4 as it is read) gives what
+    it gives on level_input's int32 Q4 codes: the sums and both
+    approximation planes, at gain 100 and 1.0."""
+    from pqa2_tpu_torch.ops.adm_int import adm_level_plain, level_input
+    from pqa2_tpu_torch.ops.cuda_adm_int import adm_int_level
+
+    ref, dist = _smooth_pair(16, 3, 41, 57)
+    e_r, e_d = _edge_frames(41, 57, 8)
+    r8 = torch.from_numpy(np.concatenate([ref, e_r]))
+    d8 = torch.from_numpy(np.concatenate([dist, e_d]))
+    r32, drop = level_input(r8.to(torch.int32), 8)
+    d32, _ = level_input(d8.to(torch.int32), 8)
+    assert r32.dtype == torch.int32 and drop == 0
+    for gain in (100.0, 1.0):
+        kw = dict(level=0, extra_row_shift=0, gain_limit=gain)
+        want = adm_level_plain(r32, d32, **kw)
+        for got in (adm_level_plain(r8, d8, **kw), adm_int_level(r8, d8, **kw)):
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="level 0"):
+        adm_level_plain(r8, d8, level=1, extra_row_shift=0, gain_limit=100.0)
+
+
+def test_adm_cascade_hands_8bit_luma_to_level0_as_it_is():
+    """The main path runs no uint8 -> int32 copy and no shift pass for ADM:
+    8-bit luma reaches level 0 as the same tensor; other depths and float
+    luma become int32 Q4 codes."""
+    from pqa2_tpu_torch.ops.adm_int import adm_cascade, adm_level_plain
+
+    ref, dist = _smooth_pair(18, 2, 30, 44)
+    r, d = torch.from_numpy(ref), torch.from_numpy(dist)
+    for x, y, depth, same in ((r, d, 8, True), (r.float(), d.float(), 8, False),
+                              (r.to(torch.int32) * 4, d.to(torch.int32) * 4, 10, False)):
+        seen = []
+
+        def level_fn(a, b, **kw):
+            seen.append((a, b, kw["extra_row_shift"]))
+            return adm_level_plain(a, b, **kw)
+
+        adm_cascade(x, y, gain_limit=100.0, bit_depth=depth, level_fn=level_fn)
+        (a0, b0, drop0), rest = seen[0], seen[1:]
+        assert ((a0 is x) and (b0 is y)) == same and drop0 == 0
+        assert a0.dtype == (torch.uint8 if same else torch.int32)
+        assert len(rest) == 3 and all(a.dtype == torch.int32 for a, _, _ in rest)
+
+
+def test_adm_quotient_audit_plain_path():
+    """The decoupling's quotient routine (f32 estimate, one exact
+    correction) on the CPU's sample, and the audit's range covers the
+    envelope's largest h/v/d band."""
+    from pqa2_tpu_torch.ops.adm_int import dwt_envelope
+    from pqa2_tpu_torch.ops.cuda_adm_int import QUOTIENT_OA_MAX, quotient_audit
+
+    assert quotient_audit("cpu") == 0
+    peak = max(dwt_envelope(lvl, ADM_BAND_Q[lvl - 1] - ADM_BAND_Q[lvl] if lvl else extra)[2]
+               for lvl in range(4) for extra in range(5))
+    assert peak < QUOTIENT_OA_MAX
+
+
 def test_pad_frames_and_iter_chunks():
     from pqa2_tpu_torch.pipeline.scoring import iter_chunks, pool_metric
     from pqa2_tpu_torch.utils.chunking import pad_frames
@@ -717,23 +821,75 @@ def test_kernel_log2_audit(cuda_device):
     assert log2_table_audit(cuda_device) == 0
 
 
-@pytest.mark.cuda
-def test_kernel_adm_int_level_matches_plain(cuda_device):
-    from pqa2_tpu_torch.ops.adm_int import adm_level_plain, level_input
+def _adm_int_levels_match(r, d, drop, gain):
+    """Kernel 3 at all four levels from a level-0 input: sums and both
+    approximation planes equal to the plain version."""
+    from pqa2_tpu_torch.ops.adm_int import adm_level_plain
     from pqa2_tpu_torch.ops.cuda_adm_int import adm_int_level
 
-    ref, dist = _smooth_pair(9, 4, 135, 241)
-    r, drop = level_input(torch.from_numpy(ref).to(cuda_device), 8)
-    d, _ = level_input(torch.from_numpy(dist).to(cuda_device), 8)
     for lvl in range(4):
         if lvl:
             drop = ADM_BAND_Q[lvl - 1] - ADM_BAND_Q[lvl]
-        kw = dict(level=lvl, extra_row_shift=drop, gain_limit=100.0)
+        kw = dict(level=lvl, extra_row_shift=drop, gain_limit=gain)
         got = adm_int_level(r, d, **kw)
         want = adm_level_plain(r, d, **kw)
         for a, b in zip(got, want):
             assert torch.equal(a, b)
         r, d = got[1], got[2]
+
+
+@pytest.mark.cuda
+def test_kernel_adm_int_level_matches_plain(cuda_device):
+    from pqa2_tpu_torch.ops.adm_int import level_input
+
+    ref, dist = _smooth_pair(9, 4, 135, 241)
+    for dt in (torch.uint8, torch.int32):
+        r, drop = level_input(torch.from_numpy(ref).to(cuda_device, dt), 8)
+        d, _ = level_input(torch.from_numpy(dist).to(cuda_device, dt), 8)
+        _adm_int_levels_match(r, d, drop, 100.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gain", [100.0, 1.0])
+@pytest.mark.parametrize("depth", [8, 10, 12, 16])
+def test_kernel_adm_int_level_edges(cuda_device, depth, gain):
+    """Kernel 3 at the edges of its arithmetic (an int32 DWT up to 12 bits,
+    level 0's widened row pass at 16, level 3 widened) on the edge frames
+    at 1080p and 3840x2160, all four levels, gain 100 and 1.0 (NEG): equal
+    to the plain version; at 8 bits on uint8 luma and on int32 Q4 codes."""
+    from pqa2_tpu_torch.ops.adm_int import level_input
+
+    for h, w in ((1080, 1920), (2160, 3840)):
+        ref, dist = _edge_frames(h, w, depth)
+        for dt in ((torch.uint8, torch.int32) if depth == 8 else (torch.int32,)):
+            r, drop = level_input(torch.from_numpy(ref).to(cuda_device, dt), depth)
+            d, _ = level_input(torch.from_numpy(dist).to(cuda_device, dt), depth)
+            _adm_int_levels_match(r, d, drop, gain)
+
+
+@pytest.mark.cuda
+def test_kernel_adm_int_level_uint8_chunk(cuda_device):
+    """The main path's level-0 call: the chunk's uint8 luma, the core frames
+    a slice of it (the first chunk, a middle one, a one-frame tail)."""
+    from pqa2_tpu_torch.ops.adm_int import level_input
+
+    ref, dist = _smooth_pair(17, 6, 135, 241)
+    m = torch.from_numpy(ref).to(cuda_device)
+    d = torch.from_numpy(dist).to(cuda_device)
+    for core in (slice(1, 5), slice(0, 5), slice(5, 6)):
+        r0, drop = level_input(m[core], 8)
+        d0, _ = level_input(d[core], 8)
+        assert r0.dtype == torch.uint8 and r0.data_ptr() == m[core].data_ptr()
+        _adm_int_levels_match(r0, d0, drop, 100.0)
+
+
+@pytest.mark.cuda
+def test_kernel_adm_quotient_audit(cuda_device):
+    """The decoupling's quotient routine on the card: every input of the
+    envelope and the directed numerators, 0 mismatches."""
+    from pqa2_tpu_torch.ops.cuda_adm_int import quotient_audit
+
+    assert quotient_audit(cuda_device) == 0
 
 
 @pytest.mark.cuda
@@ -805,6 +961,32 @@ def test_kernel_adm_level_matches_plain(cuda_device):
                 assert torch.equal(a, b)
             assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
             r, d = got[1], got[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gain", [100.0, 1.0])
+def test_kernel_adm_level_edges(cuda_device, gain):
+    """Kernel 6 on kernel 3's edge frames as f32 on the 8-bit scale, 1080p
+    and 3840x2160, all four levels: approximation bands equal in every bit,
+    the six sums within 1e-5 relative, repeatable bits."""
+    from pqa2_tpu_torch.ops.adm import adm_level_plain_float
+    from pqa2_tpu_torch.ops.cuda_adm import adm_level
+
+    for h, w in ((1080, 1920), (2160, 3840)):
+        for depth in (8, 10, 12, 16):
+            ref, dist = _edge_frames(h, w, depth)
+            div = float(1 << (depth - 8))
+            r = torch.from_numpy(ref.astype(np.float32) / div).to(cuda_device)
+            d = torch.from_numpy(dist.astype(np.float32) / div).to(cuda_device)
+            for lvl in range(4):
+                got = adm_level(r, d, level=lvl, gain_limit=gain)
+                again = adm_level(r, d, level=lvl, gain_limit=gain)
+                want = adm_level_plain_float(r, d, level=lvl, gain_limit=gain)
+                torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+                for a, b in zip(got, again):
+                    assert torch.equal(a, b)
+                assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+                r, d = got[1], got[2]
 
 
 @pytest.mark.cuda
