@@ -27,25 +27,36 @@ any failure raises and the exit code is 1):
      checkerboards of single pixels and of 8x8 blocks against their
      inverses) at 8 bits (integer VIF on uint8 and int32), 10 and 16 bits
      (the largest codes; float VIF on the 8-bit scale, both statistics).
+     Integer VIF's fast form (kernel 1f, ``precision="integer_fast"``) on
+     the 1080p chunk (uint8 and int32), the 3840x2160 pair and the edge
+     frames at 8, 10 and 16 bits, gain inf and 1.0: decimated planes and
+     SAD equal, {num, den} sums within 1e-5 relative, features within
+     2e-6, a second launch the same bits.
      Integer ADM on uint8 luma (the core frames a slice of the chunk, as
      the main path hands them over) and int32 Q4 codes, at gain 100 and
      1.0, and on the same edge frames at 8, 10, 12 and 16 bits; float ADM
      on the edge frames as f32 on the 8-bit scale, gain 100 and 1.0. The
      audit of integer ADM's quotient routine: 0 mismatches;
   3. the slices: a synthetic 1920x1080 4:2:0 y4m pair of 72 frames through
-     ``VMAFAnalyzer(device="cuda").analyze_videos``, once with
-     ``vmaf_v0.6.1`` (the integer family) and once with
-     ``vmaf_float_v0.6.1`` (the float family), both with PSNR+SSIM (chunks
-     32+32+8): their artifacts, every kernel's launch count over each run
-     (the counts are set to 0 just before it and read just after; the float
-     run must launch kernels 5-7 and none of kernels 1-3), and frames 0 and
-     32 against the port's numpy oracles (``pqa2_tpu_torch.golden``);
+     ``VMAFAnalyzer(device="cuda").analyze_videos``, with ``vmaf_v0.6.1``
+     (the integer family), with ``vmaf_float_v0.6.1`` (the float family)
+     and with ``vmaf_v0.6.1`` at ``feature_precision="integer_fast"``, all
+     with PSNR+SSIM (chunks 32+32+8): their artifacts, every kernel's launch
+     count over each run (the counts are set to 0 just before it and read
+     just after; the float run must launch kernels 5-7 and none of kernels
+     1-3, the integer_fast run kernel 1f and neither kernel 1 nor the log2
+     audit), frames 0 and 32 against the port's numpy oracles
+     (``pqa2_tpu_torch.golden``), and the integer_fast features within 1e-3
+     of the integer run's. Then the in-memory path: the same pair decoded
+     once, through ``VMAFAnalyzer.analyze_frames`` with ``vmaf_v0.6.1``
+     and PSNR+SSIM, must give the integer run's features, VMAF, PSNR and
+     SSIM in every bit;
   4. CUDA-event times of each kernel against its plain version at 1080p,
      each kernel's bound (the least time the card could take for the same
      work), and each slice's frames per second: its first run and three
      warm runs. With --profile, torch.profiler over one more warm run of
      each slice and over three scale-0 or level-0 calls of each VIF and
-     ADM kernel.
+     ADM kernel (kernel 1f too).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX and
@@ -70,6 +81,8 @@ WORK_DIR = os.path.join(HERE, "build", "chip_smoke")
 KERNELS = {
     "vif_int_scale": ("pqa2_tpu_torch/csrc/vif_int.cu",
                       "pqa2_tpu/ops/pallas_vif_int.py:1021"),
+    "vif_int_scale_fast": ("pqa2_tpu_torch/csrc/vif_int.cu",
+                           "pqa2_tpu/ops/pallas_vif_int.py:1021 (exact=False)"),
     "log2_table_audit": ("pqa2_tpu_torch/csrc/vif_int.cu",
                          "pqa2_tpu/ops/pallas_vif_int.py:152"),
     "adm_int_level": ("pqa2_tpu_torch/csrc/adm_int.cu",
@@ -85,6 +98,7 @@ KERNELS = {
 }
 INTEGER_KERNELS = ("vif_int_scale", "log2_table_audit", "adm_int_level")
 FLOAT_KERNELS = ("vif_scale", "adm_level", "motion_sad")
+FAST_KERNELS = ("vif_int_scale_fast",)
 
 # Tolerances against the numpy oracles (pqa2_tpu_torch.golden): the features
 # are f32 while the oracles combine in float64.
@@ -97,6 +111,9 @@ FLOAT_ADM_ATOL = 2e-4     # budgets (tests/test_ops.py:64, :98, :116)
 FLOAT_MOTION_ATOL = 2e-3
 FLOAT_SUM_RTOL = 1e-5     # float kernel vs plain: sums of bit-equal per-pixel
 FLOAT_FEAT_ATOL = 1e-5    # values, float64 in the kernel, f32 in torch
+FAST_FEAT_ATOL = 2e-6     # kernel 1f vs plain: the JAX package's kernel-vs-twin
+                          # budget for the integer family (tests/test_pallas_int.py:20)
+FAST_VS_EXACT_ATOL = 1e-3  # integer_fast vs integer features (tests/test_integer.py:233)
 
 # The card's peaks for the bound (NVIDIA H100 SXM data sheet): HBM3 bytes/s,
 # and f32 operations/s
@@ -205,15 +222,19 @@ def phase_kernels(torch, device, results):
     from pqa2_tpu_torch.ops import cuda_adm_int, cuda_ssim, cuda_vif_int
     from pqa2_tpu_torch.ops.adm_int import adm_level_plain, level_input
     from pqa2_tpu_torch.ops.ssim import ssim_sse_plane_plain
-    from pqa2_tpu_torch.ops.vif_int import to_native_grid, vif_int_scale_plain
+    from pqa2_tpu_torch.ops.vif_int import fast_ratio, to_native_grid, vif_int_scale_plain
 
     mism = cuda_vif_int.log2_table_audit(device)
     log(f"[kernels] log2 audit: {mism} mismatches of 32768 mantissas (x2 shifts)")
     results["log2_table_audit"]["max_abs_err"] = float(mism)
 
-    err = {"vif_int_scale": 0.0, "adm_int_level": 0.0}
+    err = {"vif_int_scale": 0.0, "adm_int_level": 0.0, "vif_int_scale_fast": 0.0}
+    fast_rel = [0.0]
 
-    def vif_all_scales(r, d, mref, in_q, label):
+    def vif_all_scales(r, d, mref, in_q, label, fast=False):
+        """Kernel 1 at all four scales; with ``fast`` kernel 1f on the same
+        inputs after it."""
+        r0, d0, in_q0 = r, d, in_q
         for scale in range(4):
             kw = dict(scale=scale, in_q=in_q, gain_limit=float("inf"),
                       decimate=scale < 3, motion_ref=mref if scale == 0 else None)
@@ -227,6 +248,41 @@ def phase_kernels(torch, device, results):
             r, d, in_q = got[1], got[2], 8
         log(f"[kernels] vif_int_scale {label}: LUT accumulators, decimated planes"
             f"{' and SAD' if mref is not None else ''} equal at all 4 scales")
+        if fast:
+            for gain in (float("inf"), 1.0):
+                vif_fast_all_scales(r0, d0, mref, in_q0, label, gain)
+
+    def vif_fast_all_scales(r, d, mref, in_q, label, gain):
+        """Kernel 1f: the same planes and SAD as its plain version, the
+        {num, den} sums within 1e-5 relative, the features within 2e-6, a
+        second launch the same bits."""
+        worst = 0.0
+        for scale in range(4):
+            kw = dict(scale=scale, in_q=in_q, gain_limit=gain, decimate=scale < 3,
+                      motion_ref=mref if scale == 0 else None, exact=False)
+            got = cuda_vif_int.vif_int_scale(r, d, **kw)
+            again = cuda_vif_int.vif_int_scale(r, d, **kw)
+            want = vif_int_scale_plain(r, d, **kw)
+            tag = f"vif fast {label} gain {gain} scale {scale}"
+            for nm, a, b in zip(("next_ref", "next_dist", "sad"), got[1:], want[1:]):
+                check_equal(torch, f"{tag} {nm}", a, b)
+            check_bits(torch, f"{tag} sums (second launch)", got[0], again[0])
+            for nm, a, b in zip(("next_ref", "next_dist", "sad"), got[1:], again[1:]):
+                check_equal(torch, f"{tag} {nm} (second launch)", a, b)
+            fast_rel[0] = max(fast_rel[0], check_rel(torch, f"{tag} sums", got[0], want[0],
+                                                     FLOAT_SUM_RTOL))
+            fe = (fast_ratio(got[0]) - fast_ratio(want[0])).abs().max().item()
+            if not fe <= FAST_FEAT_ATOL:
+                raise AssertionError(f"{tag}: feature difference {fe:.3e}")
+            worst = max(worst, fe)
+            torch.cuda.synchronize()
+            del want, again
+            r, d, in_q = got[1], got[2], 8
+        err["vif_int_scale_fast"] = max(err["vif_int_scale_fast"], worst)
+        log(f"[kernels] vif_int_scale_fast {label} gain {gain}: decimated planes"
+            f"{' and SAD' if mref is not None else ''} equal, sums within "
+            f"{FLOAT_SUM_RTOL:g} rel (max {fast_rel[0]:.3e} so far), features within "
+            f"{FAST_FEAT_ATOL:g} (max {worst:.3e}), second launch bit-equal, all 4 scales")
 
     def adm_all_levels(ref, dist, label, depth=8, kinds=("uint8", "int32"),
                        gains=(100.0, 1.0)):
@@ -263,12 +319,12 @@ def phase_kernels(torch, device, results):
     dist = distort(torch, ref, 2)
     for kind, (cr, cd) in (("uint8", (ref, dist)),
                            ("int32", (to_native_grid(ref, 8)[0], to_native_grid(dist, 8)[0]))):
-        vif_all_scales(cr[1:33], cd[1:33], cr, 0, f"1080p 32+2 frames {kind}")
+        vif_all_scales(cr[1:33], cd[1:33], cr, 0, f"1080p 32+2 frames {kind}", fast=True)
     adm_all_levels(ref[1:33], dist[1:33], "1080p 32 core frames of the chunk")
     for label, (h, w) in (("3840x2160", (2160, 3840)), ("4096x4096", (4096, 4096))):
         r1 = smooth_frames(torch, 1, h, w, 3, device)
         d1 = distort(torch, r1, 4)
-        vif_all_scales(r1, d1, None, 0, label)
+        vif_all_scales(r1, d1, None, 0, label, fast=label == "3840x2160")
         adm_all_levels(r1, d1, label)
         del r1, d1
     # The edges of kernel 1's arithmetic: uint32 filters at 8 bits, the
@@ -279,7 +335,8 @@ def phase_kernels(torch, device, results):
             r1, d1 = edge_frames(torch, h, w, depth, device)
             if kind == "int32":
                 r1, d1 = r1.to(torch.int32), d1.to(torch.int32)
-            vif_all_scales(r1, d1, r1, max(depth - 8, 0), f"edges {label} {depth}-bit {kind}")
+            vif_all_scales(r1, d1, r1, max(depth - 8, 0), f"edges {label} {depth}-bit {kind}",
+                           fast=True)
             del r1, d1
         for depth in (8, 10, 12, 16):
             r1, d1 = edge_frames(torch, h, w, depth, device)
@@ -292,6 +349,9 @@ def phase_kernels(torch, device, results):
         f"directed numerators q*|o|, q*|o| - 1, q*|o| + |o| - 1 of every q < 2^15")
     for k, v in err.items():
         results[k]["max_abs_err"] = v
+    log(f"[kernels] vif_int_scale_fast: largest relative difference of the {{num, den}} "
+        f"sums from the plain version on the card {fast_rel[0]:.3e}"
+        + (" (equal in every bit)" if fast_rel[0] == 0.0 else ""))
 
     worst = 0.0
     chroma = torch.nn.functional.avg_pool2d(ref[1:33].float()[:, None], 2)[:, 0].round()
@@ -462,6 +522,14 @@ def work(name, n, h, w, m=0):
         return ((2 * p + m * h * w) * 4 + 2 * b2 * 4 + n * 7 * 8 + (m - 1) * 8,
                 p * (20 * 17 + 3 + 40) + dec9 + m * h * w * blur5
                 + (m - 1) * h * w * 3)
+    if name == "vif_int_scale_fast":    # the same passes; the f32-log statistic:
+        # 3 conversions and 3 scalings, g (compare, max, divide), sv^2
+        # (multiply, subtract, max), the gain clamp, num (2 multiplies, 2
+        # adds, a divide, log2), den (divide, add, log2), 2 widenings and
+        # 2 adds into the sums: 26 per pixel; out (N, 2) f32.
+        return ((2 * p + m * h * w) * 4 + 2 * b2 * 4 + n * 2 * 4 + (m - 1) * 8,
+                p * (20 * 17 + 3 + 26) + dec9 + m * h * w * blur5
+                + (m - 1) * h * w * 3)
     if name == "log2_table_audit":      # 32768 mantissas x 2 lookups
         return 32768 * 4 + 65536 * 4, 65536 * 12
     if name in ("adm_int_level", "adm_level"):  # level 0: DWT of 2 planes + pooling
@@ -513,6 +581,10 @@ def phase_times(torch, device, results, ref, dist, card, profile_dir=None):
                           lambda: vif_int_scale_plain(r, d, **kw),
                           "scale 0, 32 core frames + motion over 34, 1080p, uint8",
                           work("vif_int_scale", n, h, w, m=34)),
+        "vif_int_scale_fast": (lambda: cuda_vif_int.vif_int_scale(r, d, exact=False, **kw),
+                               lambda: vif_int_scale_plain(r, d, exact=False, **kw),
+                               "fast form, scale 0, 32 core frames + motion over 34, "
+                               "1080p, uint8", work("vif_int_scale_fast", n, h, w, m=34)),
         "log2_table_audit": (lambda: cuda_vif_int.log2_table_audit(device),
                              lambda: cuda_vif_int._audit_plain(device),
                              "32768 mantissas x 2", work("log2_table_audit", 0, 0, 0)),
@@ -548,7 +620,8 @@ def phase_times(torch, device, results, ref, dist, card, profile_dir=None):
     log(f"[times] adm_int_level (the same call on the chunk's uint8 luma, as the main "
         f"path hands it over): kernel {u_ms:.3f} ms [{card}]")
     if profile_dir:
-        for name in ("vif_int_scale", "vif_scale", "adm_int_level", "adm_level"):
+        for name in ("vif_int_scale", "vif_int_scale_fast", "vif_scale", "adm_int_level",
+                     "adm_level"):
             fn = cases[name][0]
             profile_run(torch, lambda: [fn() for _ in range(3)], profile_dir, card,
                         f"{name}_3_calls")
@@ -572,7 +645,9 @@ def write_pair(n, h, w, ref_path, dist_path, torch, device):
     return ry, dy
 
 
-def kernel_wrappers():
+def kernel_counters():
+    """Each kernel's launch counter: (wrapper, attribute). Kernel 1f is the
+    integer VIF wrapper's fast form, counted apart."""
     from pqa2_tpu_torch.ops import (
         cuda_adm,
         cuda_adm_int,
@@ -582,33 +657,36 @@ def kernel_wrappers():
         cuda_vif_int,
     )
 
-    return {"vif_int_scale": cuda_vif_int.vif_int_scale,
-            "log2_table_audit": cuda_vif_int.log2_table_audit,
-            "adm_int_level": cuda_adm_int.adm_int_level,
-            "ssim_sse_plane": cuda_ssim.ssim_sse_plane,
-            "vif_scale": cuda_vif.vif_scale,
-            "adm_level": cuda_adm.adm_level,
-            "motion_sad": cuda_motion.motion_sad}
+    return {"vif_int_scale": (cuda_vif_int.vif_int_scale, "launches"),
+            "vif_int_scale_fast": (cuda_vif_int.vif_int_scale, "fast_launches"),
+            "log2_table_audit": (cuda_vif_int.log2_table_audit, "launches"),
+            "adm_int_level": (cuda_adm_int.adm_int_level, "launches"),
+            "ssim_sse_plane": (cuda_ssim.ssim_sse_plane, "launches"),
+            "vif_scale": (cuda_vif.vif_scale, "launches"),
+            "adm_level": (cuda_adm.adm_level, "launches"),
+            "motion_sad": (cuda_motion.motion_sad, "launches")}
 
 
-def run_slice(torch, analyzer, ref_path, dist_path, model, n):
-    """One main-path run with every launch count set to 0 just before it and
-    read just after; checks its artifacts. Returns (results dict, seconds,
-    launch counts)."""
-    import numpy as np
-
-    ws = kernel_wrappers()
-    for wr in ws.values():
-        wr.launches = 0
+def counted(torch, run):
+    """``run()`` with every launch count set to 0 just before it and read
+    just after -> (its result, seconds, launch counts)."""
+    counters = kernel_counters()
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = analyzer.analyze_videos(ref_path, dist_path, model=model)
+    res = run()
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    counts = {k: wr.launches for k, wr in ws.items()}
-    if res is None:
-        raise AssertionError(f"analyze_videos({model}) failed")
+    return res, elapsed, {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
 
+
+def check_results(res, label, model, n):
+    """The results dict and the artifacts of one run."""
+    import numpy as np
+
+    if res is None:
+        raise AssertionError(f"{label} failed")
     keys = {"vmaf_score", "psnr_score", "ssim_score", "json_path", "psnr_log",
             "ssim_log", "reference_video", "distorted_video", "reference_path",
             "distorted_path", "raw_results", "model", "width", "height",
@@ -637,15 +715,23 @@ def run_slice(torch, analyzer, ref_path, dist_path, model, n):
             lines = f.read().splitlines()
         if len(lines) != n + 1 or "average" not in lines[-1]:
             raise AssertionError(f"{path}: {len(lines)} lines")
-    log(f"[slice] {model}: vmaf {res['vmaf_score']:.4f} (per frame "
+    log(f"[slice] {label}: vmaf {res['vmaf_score']:.4f} (per frame "
         f"{vmaf.min():.3f}..{vmaf.max():.3f}), psnr {res['psnr_score']:.4f} dB, "
         f"ssim {res['ssim_score']:.6f}; artifacts checked")
-    log(f"[slice] {model}: launches on the main path: {counts}")
+
+
+def run_slice(torch, analyzer, ref_path, dist_path, model, n, label):
+    """One main-path run through ``analyze_videos``, counted; checks its
+    artifacts. Returns (results dict, seconds, launch counts)."""
+    res, elapsed, counts = counted(
+        torch, lambda: analyzer.analyze_videos(ref_path, dist_path, model=model))
+    check_results(res, label, model, n)
+    log(f"[slice] {label}: launches on the main path: {counts}")
     return res, elapsed, counts
 
 
 def warm_runs(torch, analyzer, ref_path, dist_path, model, first, n, card, profile_dir,
-              runs=3):
+              label, runs=3):
     """Phase 4b: warm runs of the same call for the frame rate (and, with
     --profile, one more under torch.profiler)."""
     fps = []
@@ -656,18 +742,28 @@ def warm_runs(torch, analyzer, ref_path, dist_path, model, first, n, card, profi
         torch.cuda.synchronize()
         fps.append(n / (time.perf_counter() - t0))
         if res2 is None or abs(res2["vmaf_score"] - first[0]["vmaf_score"]) > 0:
-            raise AssertionError(f"{model}: a warm run differs from the first")
+            raise AssertionError(f"{label}: a warm run differs from the first")
     if profile_dir:
         profile_run(torch, lambda: analyzer.analyze_videos(ref_path, dist_path, model=model),
-                    profile_dir, card, f"slice_{model}_warm_run")
-    log(f"[times] slice 1080p {model}+PSNR+SSIM, {n} frames: first run "
+                    profile_dir, card, f"slice_{label}_warm_run")
+    log(f"[times] slice 1080p {label}+PSNR+SSIM, {n} frames: first run "
         f"{first[1]:.3f} s ({n / first[1]:.2f} fps), warm runs "
         + ", ".join(f"{f:.2f}" for f in fps)
         + f" fps (median {sorted(fps)[len(fps) // 2]:.2f}) [{card}]")
 
 
+def expect_counts(counts, label, want):
+    """Raise unless each named kernel was launched ``want[name]`` times
+    (None: at least once)."""
+    for k, v in want.items():
+        if (counts[k] <= 0) if v is None else (counts[k] != v):
+            raise AssertionError(f"{label}: {k} launched {counts[k]} times, expected "
+                                 f"{'at least once' if v is None else v}: {counts}")
+
+
 def phase_slice(torch, device, results, card, profile_dir=None):
-    """Phase 3 (+ 4b): both main paths end to end, then the oracle checks."""
+    """Phase 3 (+ 4b): the three main paths and the in-memory path end to
+    end, with the oracle and cross-path checks."""
     import numpy as np
 
     from pqa2_tpu_torch.app.vmaf_analyzer import VMAFAnalyzer
@@ -677,6 +773,7 @@ def phase_slice(torch, device, results, card, profile_dir=None):
     from pqa2_tpu_torch.golden.motion_int import motion_features_int
     from pqa2_tpu_torch.golden.vif import vif_features
     from pqa2_tpu_torch.golden.vif_int import vif_features_int
+    from pqa2_tpu_torch.io.video import VideoReader
 
     os.makedirs(WORK_DIR, exist_ok=True)
     ref_path = os.path.join(WORK_DIR, "ref_1080p.y4m")
@@ -685,23 +782,27 @@ def phase_slice(torch, device, results, card, profile_dir=None):
     ry, dy = write_pair(n, 1080, 1920, ref_path, dist_path, torch, device)
     log(f"[slice] wrote {n}-frame 1920x1080 4:2:0 y4m pair")
 
-    analyzer = VMAFAnalyzer(device="cuda")
-    analyzer.set_output_directory(os.path.join(WORK_DIR, "out"))
-    analyzer.set_test_name("smoke")
+    def analyzer(name, precision=None):
+        a = VMAFAnalyzer(device="cuda")
+        a.set_output_directory(os.path.join(WORK_DIR, "out"))
+        a.set_test_name(name)
+        a.feature_precision = precision
+        return a
 
     # The integer family: vmaf_v0.6.1 runs kernels 1-4.
     model = "vmaf_v0.6.1"
-    first = run_slice(torch, analyzer, ref_path, dist_path, model, n)
+    exact = analyzer("smoke")
+    first = run_slice(torch, exact, ref_path, dist_path, model, n, model)
     counts = first[2]
-    for k in KERNELS:
-        if k not in FLOAT_KERNELS:
-            results[k]["launches"] = counts[k]
-            if counts[k] <= 0:
-                raise AssertionError(f"kernel {k} was not launched on the integer path")
+    expect_counts(counts, model, {k: None for k in (*INTEGER_KERNELS, "ssim_sse_plane")})
+    expect_counts(counts, model, {k: 0 for k in (*FLOAT_KERNELS, *FAST_KERNELS)})
+    for k in (*INTEGER_KERNELS, "ssim_sse_plane"):
+        results[k]["launches"] = counts[k]
+    int_scores = exact.last_scores
 
     # Frames 0 and 32 (a chunk boundary) against the numpy oracles, on the
     # unrounded features of the run (the JSON rounds to 6 decimals).
-    feats = analyzer.last_scores.features
+    feats = int_scores.features
     for i in (0, 32):
         vo = np.array(vif_features_int(ry[i], dy[i]))
         ao = adm_features_int(ry[i], dy[i])[0]
@@ -719,19 +820,18 @@ def phase_slice(torch, device, results, card, profile_dir=None):
             raise AssertionError(f"frame 32 {nm} {got} vs oracle {want}")
     log(f"[oracle] {model} frame 32: motion {feats['motion'][32]:.6f} "
         f"(oracle {mo[1]:.6f}), motion2 {feats['motion2'][32]:.6f} (oracle {m2o[1]:.6f})")
-    warm_runs(torch, analyzer, ref_path, dist_path, model, first, n, card, profile_dir)
+    warm_runs(torch, exact, ref_path, dist_path, model, first, n, card, profile_dir, model)
 
     # The float family: vmaf_float_v0.6.1 runs kernels 4-7 and none of 1-3.
     model = "vmaf_float_v0.6.1"
-    first = run_slice(torch, analyzer, ref_path, dist_path, model, n)
+    flt = analyzer("smoke")
+    first = run_slice(torch, flt, ref_path, dist_path, model, n, model)
     counts = first[2]
+    expect_counts(counts, model, {k: None for k in (*FLOAT_KERNELS, "ssim_sse_plane")})
+    expect_counts(counts, model, {k: 0 for k in (*INTEGER_KERNELS, *FAST_KERNELS)})
     for k in FLOAT_KERNELS:
         results[k]["launches"] = counts[k]
-        if counts[k] <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the float path")
-    if any(counts[k] for k in INTEGER_KERNELS) or counts["ssim_sse_plane"] <= 0:
-        raise AssertionError(f"the float path launched the wrong kernels: {counts}")
-    feats = analyzer.last_scores.features
+    feats = flt.last_scores.features
     for i in (0, 32):
         vo = np.array(vif_features(ry[i], dy[i], variant="classic"))
         ao = adm_features(ry[i], dy[i])[0]
@@ -749,7 +849,64 @@ def phase_slice(torch, device, results, card, profile_dir=None):
             raise AssertionError(f"{model} frame 32 {nm} {got} vs oracle {want}")
     log(f"[oracle] {model} frame 32: motion {feats['motion'][32]:.6f} (oracle "
         f"{mo[1]:.6f}), motion2 {feats['motion2'][32]:.6f} (oracle {m2o[1]:.6f})")
-    warm_runs(torch, analyzer, ref_path, dist_path, model, first, n, card, profile_dir)
+    warm_runs(torch, flt, ref_path, dist_path, model, first, n, card, profile_dir, model)
+
+    # integer_fast: vmaf_v0.6.1 with VIF's smooth-log statistic runs kernel
+    # 1f in place of kernel 1, and no log2 table audit.
+    model, label = "vmaf_v0.6.1", "vmaf_v0.6.1 integer_fast"
+    fast = analyzer("smoke_fast", "integer_fast")
+    first = run_slice(torch, fast, ref_path, dist_path, model, n, label)
+    counts = first[2]
+    expect_counts(counts, label, {"vif_int_scale_fast": 12, "vif_int_scale": 0,
+                                  "log2_table_audit": 0, "adm_int_level": 12,
+                                  "ssim_sse_plane": None})
+    expect_counts(counts, label, {k: 0 for k in FLOAT_KERNELS})
+    results["vif_int_scale_fast"]["launches"] = counts["vif_int_scale_fast"]
+    fs = fast.last_scores
+    dfeat = max(float(np.max(np.abs(fs.features[k].astype(np.float64)
+                                    - int_scores.features[k]))) for k in fs.features)
+    dvmaf = np.abs(fs.vmaf.astype(np.float64) - int_scores.vmaf)
+    if not dfeat <= FAST_VS_EXACT_ATOL:
+        raise AssertionError(f"{label}: features {dfeat:.3e} from the integer run's")
+    for k in ("adm2", "motion", "motion2"):
+        if not np.array_equal(fs.features[k], int_scores.features[k]):
+            raise AssertionError(f"{label}: {k} differs from the integer run's")
+    log(f"[slice] {label} against the integer run: max |feature delta| {dfeat:.3e} "
+        f"(vif only; adm2 and motion equal), per-frame max |VMAF delta| "
+        f"{dvmaf.max():.3e} (mean {dvmaf.mean():.3e})")
+    warm_runs(torch, fast, ref_path, dist_path, model, first, n, card, profile_dir,
+              "vmaf_v0.6.1_integer_fast")
+
+    # The in-memory path: the pair decoded once, then analyze_frames. It
+    # must give the integer run's per-frame values in every bit.
+    planes = []
+    for path in (ref_path, dist_path):
+        r = VideoReader(path)
+        try:
+            planes.append(list(r))
+        finally:
+            r.close()
+    label = "vmaf_v0.6.1 analyze_frames"
+    mem = analyzer("smoke_frames")
+    res, elapsed, counts = counted(torch, lambda: mem.analyze_frames(
+        planes[0], planes[1], model="vmaf_v0.6.1", reference_name=ref_path,
+        distorted_name=dist_path))
+    check_results(res, label, "vmaf_v0.6.1", n)
+    log(f"[slice] {label}: launches on the in-memory path: {counts}")
+    expect_counts(counts, label, {"vif_int_scale": 12, "log2_table_audit": 1,
+                                  "adm_int_level": 12, "ssim_sse_plane": 9})
+    expect_counts(counts, label, {k: 0 for k in (*FLOAT_KERNELS, *FAST_KERNELS)})
+    got = mem.last_scores
+    pairs = [(f"feature {k}", got.features[k], int_scores.features[k]) for k in got.features]
+    pairs += [("vmaf", got.vmaf, int_scores.vmaf)]
+    pairs += [(k, got.psnr[k], int_scores.psnr[k]) for k in int_scores.psnr]
+    pairs += [(k, got.ssim[k], int_scores.ssim[k]) for k in int_scores.ssim]
+    for nm, a, b in pairs:
+        if a.shape != b.shape or not np.array_equal(a, b):
+            raise AssertionError(f"{label}: {nm} differs from analyze_videos'")
+    log(f"[slice] {label}: {len(pairs)} per-frame arrays (features, VMAF, PSNR, SSIM) "
+        f"equal to analyze_videos' in every bit; {elapsed:.3f} s for {n} decoded frames "
+        f"[{card}]")
 
 
 def profile_run(torch, run, out_dir, card, label):

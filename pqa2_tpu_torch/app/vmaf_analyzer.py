@@ -1,11 +1,15 @@
 """VMAFAnalyzer — the scoring engine facade (port of pqa2_tpu/app/vmaf_analyzer.py).
 
-Same signal channels, the same ``analyze_videos(reference, distorted,
-model, duration)`` entry point, the same results-dict keys and on-disk
+Same signal channels, the same settings (``options_manager``,
+:meth:`VMAFAnalyzer.set_options_from_manager`), the same entry points
+(``analyze_videos(reference, distorted, model, duration)`` and the
+in-memory ``analyze_frames``), the same results-dict keys and on-disk
 artifacts (``*_vmaf.json`` in the libvmaf schema, ``*_psnr.txt`` /
-``*_ssim.txt`` in ffmpeg's stats_file line format). Scoring runs through
-:func:`pqa2_tpu_torch.pipeline.streaming.stream_score` on the analyzer's
-``device``.
+``*_ssim.txt`` in ffmpeg's stats_file line format), and
+:class:`VMAFAnalysisThread`. Files score through
+:func:`pqa2_tpu_torch.pipeline.streaming.stream_score`, decoded frames
+through :func:`pqa2_tpu_torch.pipeline.scoring.score_planes`, both on the
+analyzer's ``device``.
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ import logging
 import os
 import threading
 from datetime import datetime
-from typing import Dict, Optional, Union
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -23,7 +27,7 @@ from pqa2_tpu_torch.io.video import probe_video
 from pqa2_tpu_torch.utils.profiling import ThroughputMeter
 from pqa2_tpu_torch.utils.signals import Signal
 from pqa2_tpu_torch.pipeline.json_out import write_vmaf_json
-from pqa2_tpu_torch.pipeline.scoring import ClipScores, pool_metric
+from pqa2_tpu_torch.pipeline.scoring import ClipScores, pool_metric, score_planes
 from pqa2_tpu_torch.pipeline.streaming import stream_score
 
 logger = logging.getLogger(__name__)
@@ -76,7 +80,7 @@ def write_ssim_log(scores: ClipScores, path: str) -> None:
 class VMAFAnalyzer:
     """VMAF + PSNR + SSIM scoring on ``device`` with the reference's API."""
 
-    def __init__(self, device: Union[str, torch.device] = "cuda"):
+    def __init__(self, options_manager=None, device: Union[str, torch.device] = "cuda"):
         self.analysis_progress = Signal(int, name="analysis_progress")
         self.analysis_complete = Signal(dict, name="analysis_complete")
         self.analysis_failed = Signal(str, name="analysis_failed")
@@ -84,6 +88,7 @@ class VMAFAnalyzer:
         self.status_update = Signal(str, name="status_update")
 
         self.device = torch.device(device)
+        self.options_manager = options_manager
         self.output_directory: Optional[str] = None
         self.test_name: Optional[str] = None
         self.model = "vmaf_v0.6.1"
@@ -98,6 +103,26 @@ class VMAFAnalyzer:
         self.last_scores: Optional[ClipScores] = None
         self._lock = threading.Lock()
         self._abort = threading.Event()
+        if options_manager is not None:
+            self.set_options_from_manager(options_manager)
+
+    def set_options_from_manager(self, options_manager) -> None:
+        """Model, pool method, feature subsample and precision, PSNR/SSIM
+        from the ``vmaf`` settings; the chunk size from ``tpu.chunk_size``
+        (the settings file's category name)."""
+        self.options_manager = options_manager
+        vmaf = options_manager.get_setting("vmaf") or {}
+        self.model = vmaf.get("default_model", self.model)
+        self.pool_method = vmaf.get("pool_method", self.pool_method)
+        self.feature_subsample = int(vmaf.get("feature_subsample", 1) or 1)
+        fp = vmaf.get("feature_precision", "auto")
+        self.feature_precision = None if fp in (None, "", "auto") else str(fp)
+        self.psnr_enabled = bool(vmaf.get("psnr_enabled", True))
+        self.ssim_enabled = bool(vmaf.get("ssim_enabled", True))
+        chunks = options_manager.get_setting("tpu") or {}
+        self.chunk_size = int(chunks.get("chunk_size", 32) or 32)
+
+    set_options_manager = set_options_from_manager
 
     def set_output_directory(self, directory: str) -> None:
         self.output_directory = directory
@@ -182,6 +207,71 @@ class VMAFAnalyzer:
             width=dist_info["width"], height=dist_info["height"],
         )
 
+    def analyze_frames(
+        self,
+        ref_planes: List[Dict],
+        dist_planes: List[Dict],
+        fps: float = 30.0,
+        model: Optional[str] = None,
+        reference_name: str = "reference",
+        distorted_name: str = "distorted",
+        bit_depth: int = 8,
+        ref_y=None,
+        dist_y=None,
+    ) -> Optional[Dict]:
+        """Score already-decoded planar frames (``VideoReader`` output dicts),
+        the decode-once entry point: the same signals, artifacts and results
+        dict as :meth:`analyze_videos`. ``ref_y``/``dist_y`` may be the luma
+        already on the 8-bit scale, on the device (not copied back)."""
+        with self._lock:
+            self._abort.clear()
+            try:
+                return self._analyze_frames(
+                    ref_planes, dist_planes, fps, model or self.model,
+                    reference_name, distorted_name, bit_depth, ref_y, dist_y)
+            except Exception as e:
+                logger.exception("analysis failed")
+                msg = f"VMAF analysis error: {e}"
+                self.error_occurred.emit(msg)
+                self.analysis_failed.emit(msg)
+                return None
+
+    def _analyze_frames(self, ref_planes, dist_planes, fps, model, reference_name,
+                        distorted_name, bit_depth, ref_y=None, dist_y=None):
+        if not ref_planes or not dist_planes:
+            raise ValueError("empty frame list")
+        n = min(len(ref_planes), len(dist_planes))
+        self.status_update.emit(f"Starting VMAF analysis with model {model}...")
+        self.analysis_progress.emit(5)
+        n_sampled = -(-n // max(1, self.feature_subsample))
+        meter = ThroughputMeter(
+            n_sampled or 1,
+            progress_cb=lambda p: self.analysis_progress.emit(5 + p * 75 // 100),
+            status_cb=self.status_update.emit,
+        )
+
+        def on_chunk(k):
+            if self._abort.is_set():
+                raise InterruptedError("analysis terminated")
+            meter.add(k)
+
+        scores = score_planes(
+            ref_planes[:n], dist_planes[:n], model=model, chunk_size=self.chunk_size,
+            with_psnr=self.psnr_enabled, with_ssim=self.ssim_enabled,
+            frame_cb=on_chunk, bit_depth=bit_depth, subsample=self.feature_subsample,
+            precision=self.feature_precision,
+            ref_y=ref_y[:n] if ref_y is not None else None,
+            dist_y=dist_y[:n] if dist_y is not None else None,
+            device=self.device,
+        )
+        self.analysis_progress.emit(80)
+        h, w = ref_planes[0]["y"].shape
+        return self._finalize(
+            scores, fps=fps, model=model,
+            reference_path=reference_name, distorted_path=distorted_name,
+            width=w, height=h,
+        )
+
     def _finalize(self, scores: ClipScores, *, fps, model,
                   reference_path, distorted_path, width, height) -> Dict:
         """Write the artifacts and build the reference-shaped results dict."""
@@ -238,3 +328,26 @@ class VMAFAnalyzer:
         self.status_update.emit(f"VMAF analysis complete! Score: {vmaf_score:.2f}")
         self.analysis_complete.emit(results)
         return results
+
+
+class VMAFAnalysisThread(threading.Thread):
+    """One ``analyze_videos`` run on a thread, its analyzer's signals
+    re-exposed on the thread (pqa2_tpu/app/vmaf_analyzer.py:382)."""
+
+    def __init__(self, reference_path, distorted_path, model=None, duration=None,
+                 options_manager=None, device: Union[str, torch.device] = "cuda"):
+        super().__init__(daemon=True)
+        self.analyzer = VMAFAnalyzer(options_manager, device=device)
+        self.analysis_progress = self.analyzer.analysis_progress
+        self.analysis_complete = self.analyzer.analysis_complete
+        self.analysis_failed = self.analyzer.analysis_failed
+        self.error_occurred = self.analyzer.error_occurred
+        self.status_update = self.analyzer.status_update
+        self._args = (reference_path, distorted_path, model, duration)
+        self.results: Optional[Dict] = None
+
+    def run(self):
+        self.results = self.analyzer.analyze_videos(*self._args)
+
+    def terminate(self):
+        self.analyzer.terminate_analysis()

@@ -1,10 +1,14 @@
 """Command line of the PyTorch/CUDA port.
 
   python -m pqa2_tpu_torch.cli score REF DIST [--model M] [--out DIR]
-                                    [--device cuda|cpu] ...
+                                    [--precision P] [--device cuda|cpu] ...
+  python -m pqa2_tpu_torch.cli probe VIDEO
+  python -m pqa2_tpu_torch.cli models
 
-Prints one JSON line with the pooled scores and the JSON log's path.
-``--device cpu`` runs the plain PyTorch versions instead of the kernels.
+``score`` prints one JSON line with the pooled scores and the JSON log's
+path; ``--device cpu`` runs the plain PyTorch versions instead of the
+kernels. ``probe`` prints a video's metadata, ``models`` the packaged
+models.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ def cmd_score(args) -> int:
     analyzer.model = args.model
     analyzer.pool_method = args.pool
     analyzer.feature_subsample = args.subsample
+    analyzer.feature_precision = None if args.precision == "auto" else args.precision
     analyzer.psnr_enabled = not args.no_psnr
     analyzer.ssim_enabled = not args.no_ssim
     if args.out:
@@ -44,6 +49,29 @@ def cmd_score(args) -> int:
     return 0
 
 
+def cmd_probe(args) -> int:
+    from pqa2_tpu_torch.io.video import probe_video
+
+    print(json.dumps(probe_video(args.video), default=str))
+    return 0
+
+
+def cmd_models(args) -> int:
+    from pqa2_tpu_torch.models.registry import available_models, get_model
+
+    out = {}
+    for name in available_models():
+        m = get_model(name)
+        if hasattr(m, "models"):
+            out[name] = {"type": "bootstrap", "n_models": m.n_models,
+                         "features": list(m.feature_names)}
+        else:
+            out[name] = {"type": "nusvr", "n_sv": m.n_sv,
+                         "features": list(m.feature_names)}
+    print(json.dumps(out, indent=2))
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(prog="pqa2_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -59,9 +87,24 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--pool", default="mean",
                    choices=["mean", "min", "max", "harmonic_mean"])
     p.add_argument("--subsample", type=int, default=1)
+    p.add_argument("--precision", default="auto",
+                   choices=["auto", "integer", "integer_fast", "float"],
+                   help="feature family: auto follows the model (integer "
+                        "models -> integer, the bit-faithful fixed-point "
+                        "path incl. the exact LUT statistic); integer_fast "
+                        "smooths the statistic's logs to f32 (score delta "
+                        "<=1e-3); float forces the f32 kernels")
     p.add_argument("--no-psnr", action="store_true")
     p.add_argument("--no-ssim", action="store_true")
     p.set_defaults(fn=cmd_score)
+
+    p = sub.add_parser("probe", help="video metadata")
+    p.add_argument("video")
+    p.set_defaults(fn=cmd_probe)
+
+    p = sub.add_parser("models", help="list packaged models")
+    p.set_defaults(fn=cmd_models)
+
     args = parser.parse_args(argv)
     return args.fn(args)
 

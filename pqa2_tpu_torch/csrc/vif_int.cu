@@ -1,6 +1,6 @@
 // Integer fixed-point VIF scale pass with the next scale's decimation and
 // the motion blur fused in, the motion SAD, and the Q11 log2 table audit —
-// kernels 1 and 2 of pqa2_tpu_torch.
+// kernels 1, 1f and 2 of pqa2_tpu_torch.
 //
 // Replaces (pqa2_tpu/ops/pallas_vif_int.py):
 //   * vif_int_scale_pallas (pl.pallas_call at :1021, body _make_int_kernel
@@ -9,6 +9,10 @@
 //     planes (next_taps, :488); at scale 0 the 5-tap motion blur of the
 //     reference and the integer SAD of consecutive blurred frames
 //     (with_motion, :507, :530);
+//   * the same kernel's fast body (exact_fused=False, emit_sigma=False;
+//     statistic _statistic_int :467-483, precision="integer_fast"): the
+//     same planes, then the smooth f32-log statistic, summed per frame as
+//     {num, den} (FAST = true below: kernel 1f);
 //   * log2_direct_exceptions (pl.pallas_call at :152): the exhaustive audit
 //     of the log2 used by the statistic against golden/log2lut.py.
 //
@@ -48,7 +52,13 @@
 //     integer atomic each. Hopper has int64, uint64 and f64 natively, so
 //     none of the TPU's uint32 splitting, long division, double-f32 log
 //     engines or the 2^24-px envelope is needed: the table is read (__ldg,
-//     L1-resident 128 KB).
+//     L1-resident 128 KB);
+//   * kernel 1f shares everything above but the statistic: per pixel a few
+//     f32 operations and two log2f (no table read, no 64-bit division, no
+//     int64 accumulator), summed in float64 per thread, per block in a
+//     fixed shuffle order, and across blocks by the fixed-order second pass
+//     (common.cuh:finish_partials_kernel), so a run gives the same bits
+//     every time.
 #include "common.cuh"
 
 #include <math.h>
@@ -161,6 +171,38 @@ __device__ __forceinline__ void vif_pixel(i64 sigma1, i64 sigma2, i64 sigma12,
   acc[1] += k1 - k2;
 }
 
+// 4 / 255^2 of the fast statistic's flat branch, rounded to f32 from the
+// double once, as the plain version's constant is.
+constexpr float kFlatScale = static_cast<float>(4.0 / (255.0 * 255.0));
+
+// One pixel of the smooth f32-log statistic (pqa2_tpu/ops/vif_int.py:
+// _statistic_fast), added to {num, den}: the plain version's f32
+// operations in its order, each rounded on its own (the _rn intrinsics;
+// the build also passes --fmad=false), and log2f, which torch.log2 calls
+// on the card too. The divisions by 65536 and by 2 are multiplications by
+// 2^-16 and 0.5, exact for these values as the divisions are, so they give
+// the same bits. A Q16 variance on the 8-bit scale is below 2^30
+// (|covariance| too), so every sigma converts through int32 as the JAX
+// package's does. The gain limit applies after sv^2 (libvmaf order).
+__device__ __forceinline__ void vif_pixel_fast(i64 sigma1, i64 sigma2, i64 sigma12, i64 nsq,
+                                               float gain_limit, double (&acc)[2]) {
+  constexpr float kQ16 = 1.0f / 65536.0f;
+  const float s2 = __fmul_rn(__int2float_rn(static_cast<int>(sigma2 > 0 ? sigma2 : 0)), kQ16);
+  if (sigma1 < nsq) {
+    acc[0] += static_cast<double>(__fsub_rn(1.0f, __fmul_rn(s2, kFlatScale)));
+    acc[1] += 1.0;
+    return;
+  }
+  const float s1 = __fmul_rn(__int2float_rn(static_cast<int>(sigma1)), kQ16);
+  const float s12 = __fmul_rn(__int2float_rn(static_cast<int>(sigma12)), kQ16);
+  float g = s12 > 0.0f ? __fdiv_rn(s12, fmaxf(s1, 1e-10f)) : 0.0f;
+  const float sv = fmaxf(__fsub_rn(s2, __fmul_rn(g, s12)), 0.0f);
+  g = fminf(g, gain_limit);
+  const float ratio = __fdiv_rn(__fmul_rn(__fmul_rn(g, g), s1), __fadd_rn(sv, 2.0f));
+  acc[0] += static_cast<double>(log2f(__fadd_rn(1.0f, ratio)));
+  acc[1] += static_cast<double>(log2f(__fadd_rn(1.0f, __fmul_rn(s1, 0.5f))));
+}
+
 // A symmetric KxK-tap window at v[o .. o + 2*H] (step 1), uint32: exact
 // while the whole sum stays below 2^32 (every term is non-negative, so
 // every partial sum is below the total).
@@ -229,15 +271,17 @@ __device__ __forceinline__ void motion_row(const u16* mv, int i, const unsigned*
 }
 
 // One VIF scale over a 48x32 tile of frame blockIdx.z: the statistic's
-// seven accumulators; with next_ref the next scale's Q8 planes (even rows
-// and columns, the next scale's taps); with blurred the motion blur of
-// this frame, written as frame blockIdx.z + mframe of ``blurred``.
-template <int HALF, bool WIDE, typename In>
+// seven accumulators added to ``sums`` (int64 (n, 7)), or with FAST the
+// block's {num, den} partials written to ``sums`` (double, the layout of
+// common.cuh:block_partials); with next_ref the next scale's Q8 planes
+// (even rows and columns, the next scale's taps); with blurred the motion
+// blur of this frame, written as frame blockIdx.z + mframe of ``blurred``.
+template <int HALF, bool WIDE, bool FAST, typename In>
 __global__ void __launch_bounds__(kThreads, WIDE ? kMinBlocksWide : kMinBlocksNarrow)
 vif_int_scale_kernel(const In* __restrict__ ref, const In* __restrict__ dist, int H, int W,
                      int in_q, const __grid_constant__ Taps taps,
                      const int* __restrict__ tab, double gain_limit,
-                     double eps, i64 nsq, i64* __restrict__ stats, int* __restrict__ next_ref,
+                     double eps, i64 nsq, void* __restrict__ sums, int* __restrict__ next_ref,
                      int* __restrict__ next_dist, u16* __restrict__ blurred, int mframe) {
   using T = Tile<HALF, WIDE>;
   typedef typename std::conditional<WIDE, unsigned, u16>::type P;   // product plane
@@ -326,6 +370,7 @@ vif_int_scale_kernel(const In* __restrict__ ref, const In* __restrict__ dist, in
   // columns. mu to Q24 (no rounding), products back to Q16 pixel^2
   // (>> hs), then the sigma planes and the statistic.
   i64 acc[7] = {0, 0, 0, 0, 0, 0, 0};
+  double facc[2] = {0.0, 0.0};
   {
     const int row = tid & 31, c0 = (tid >> 5) * RC;
     constexpr int N = RC + 2 * HALF;
@@ -361,10 +406,16 @@ vif_int_scale_kernel(const In* __restrict__ ref, const In* __restrict__ dist, in
       const u64 m11 = (m1 * m1 + (1ull << 31)) >> 32;
       const u64 m22 = (m2 * m2 + (1ull << 31)) >> 32;
       const u64 m12 = (m1 * m2 + (1ull << 31)) >> 32;
-      vif_pixel(static_cast<i64>(pr[0][c]) - static_cast<i64>(m11),
-                static_cast<i64>(pr[1][c]) - static_cast<i64>(m22),
-                static_cast<i64>(pr[2][c]) - static_cast<i64>(m12),
-                nsq, tab, gain_limit, eps, acc);
+      if constexpr (FAST)
+        vif_pixel_fast(static_cast<i64>(pr[0][c]) - static_cast<i64>(m11),
+                       static_cast<i64>(pr[1][c]) - static_cast<i64>(m22),
+                       static_cast<i64>(pr[2][c]) - static_cast<i64>(m12),
+                       nsq, static_cast<float>(gain_limit), facc);
+      else
+        vif_pixel(static_cast<i64>(pr[0][c]) - static_cast<i64>(m11),
+                  static_cast<i64>(pr[1][c]) - static_cast<i64>(m22),
+                  static_cast<i64>(pr[2][c]) - static_cast<i64>(m12),
+                  nsq, tab, gain_limit, eps, acc);
     }
   }
 
@@ -394,7 +445,10 @@ vif_int_scale_kernel(const In* __restrict__ ref, const In* __restrict__ dist, in
       }
     }
   }
-  block_atomic_add<7>(acc, stats + static_cast<size_t>(n) * 7);
+  if constexpr (FAST)
+    block_partials<2>(facc, static_cast<double*>(sums));
+  else
+    block_atomic_add<7>(acc, static_cast<i64*>(sums) + static_cast<size_t>(n) * 7);
 }
 
 // Motion blur of the frames of ``src`` that the scale-0 launch did not
@@ -458,39 +512,54 @@ Taps make_taps(const int* f, int k, const int* fn, int kn, const int* fm) {
   return t;
 }
 
-template <int HALF, bool WIDE, typename In>
-int launch_scale(const void* ref, const void* dist, int n, int h, int w, int in_q,
-                 const Taps& taps, const int* tab, double gain_limit, double eps, i64 nsq,
-                 i64* stats, int* next_ref, int* next_dist, u16* blurred, int mframe,
-                 cudaStream_t stream) {
-  auto kern = vif_int_scale_kernel<HALF, WIDE, In>;
+// A scale launch's arguments, as the C launcher was given them.
+struct ScaleArgs {
+  const void* ref;
+  const void* dist;
+  int n, h, w, in_q;
+  Taps taps;
+  const int* tab;
+  double gain_limit, eps;
+  i64 nsq;
+  i64* stats;    // exact form: (n, 7) int64 accumulators
+  double* part;  // fast form: n * blocks * 2 partials ...
+  float* sums;   // ... and the (n, 2) f32 {num, den} sums
+  int* next_ref;
+  int* next_dist;
+  u16* blurred;
+  int mframe;
+  cudaStream_t stream;
+};
+
+template <int HALF, bool WIDE, bool FAST, typename In>
+int launch_scale(const ScaleArgs& a) {
+  auto kern = vif_int_scale_kernel<HALF, WIDE, FAST, In>;
   constexpr size_t bytes = Tile<HALF, WIDE>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n);
-  kern<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const In*>(ref), static_cast<const In*>(dist), h, w, in_q, taps, tab,
-      gain_limit, eps, nsq, stats, next_ref, next_dist, blurred, mframe);
+  const dim3 grid((a.w + TW - 1) / TW, (a.h + TH - 1) / TH, a.n);
+  void* out = FAST ? static_cast<void*>(a.part) : static_cast<void*>(a.stats);
+  kern<<<grid, kThreads, bytes, a.stream>>>(
+      static_cast<const In*>(a.ref), static_cast<const In*>(a.dist), a.h, a.w, a.in_q, a.taps,
+      a.tab, a.gain_limit, a.eps, a.nsq, out, a.next_ref, a.next_dist, a.blurred, a.mframe);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !FAST) return static_cast<int>(err);
+  finish_partials_kernel<2><<<a.n, kThreads, 0, a.stream>>>(
+      a.part, static_cast<int>(grid.x * grid.y), a.sums);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int HALF, bool WIDE, typename In>
+int launch_form(const ScaleArgs& a, bool fast) {
+  return fast ? launch_scale<HALF, WIDE, true, In>(a) : launch_scale<HALF, WIDE, false, In>(a);
+}
+
 template <int HALF>
-int dispatch_scale(const void* ref, const void* dist, int in_u8, int n, int h, int w,
-                   int in_q, const Taps& taps, const int* tab, double gain_limit,
-                   double eps, i64 nsq, i64* stats, int* next_ref, int* next_dist,
-                   u16* blurred, int mframe, cudaStream_t stream) {
-  if (in_u8)
-    return launch_scale<HALF, false, unsigned char>(ref, dist, n, h, w, in_q, taps, tab,
-                                                    gain_limit, eps, nsq, stats, next_ref,
-                                                    next_dist, blurred, mframe, stream);
-  if (in_q == 0)
-    return launch_scale<HALF, false, int>(ref, dist, n, h, w, in_q, taps, tab, gain_limit,
-                                          eps, nsq, stats, next_ref, next_dist, blurred,
-                                          mframe, stream);
-  return launch_scale<HALF, true, int>(ref, dist, n, h, w, in_q, taps, tab, gain_limit, eps,
-                                       nsq, stats, next_ref, next_dist, blurred, mframe,
-                                       stream);
+int dispatch_scale(const ScaleArgs& a, int in_u8, bool fast) {
+  if (in_u8) return launch_form<HALF, false, unsigned char>(a, fast);
+  if (a.in_q == 0) return launch_form<HALF, false, int>(a, fast);
+  return launch_form<HALF, true, int>(a, fast);
 }
 
 }  // namespace
@@ -501,27 +570,41 @@ const char* pqa2_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// Partials per frame of the fast form for an (h, w) plane (the wrapper
+// sizes its scratch).
+int pqa2_vif_int_blocks(int h, int w) {
+  return ((w + TW - 1) / TW) * ((h + TH - 1) / TH);
+}
+
 // One VIF scale. ref/dist (n, h, w): uint8 codes (in_u8, in_q 0) or int32
 // codes (Q{in_q}, < 2^16; below 2^8 at in_q 0). Host taps: this scale's
 // 2*half+1, the next scale's 2*(half/2)+1 when next_ref/next_dist (n,
 // ceil(h/2), ceil(w/2)) int32 are given, the 5 motion taps when blurred
 // (uint16 frames) is given: frame i of ref is blurred into frame i + mframe
-// (half >= 2). stats (n, 7) int64 must be zeroed by the caller.
+// (half >= 2). The exact statistic (fast 0) adds to stats (n, 7) int64,
+// zeroed by the caller; the fast one (fast 1) writes part (n *
+// pqa2_vif_int_blocks(h, w) * 2 doubles of scratch) and sums (n, 2) f32
+// {num, den}.
 int pqa2_vif_scale(const void* ref, const void* dist, int in_u8, int n, int h, int w,
                    int in_q, int half, const int* taps, const int* next_taps,
                    const int* motion_taps, const int* tab, double gain_limit, double eps,
-                   long long nsq, long long* stats, int* next_ref, int* next_dist,
-                   unsigned short* blurred, int mframe, cudaStream_t stream) {
+                   long long nsq, int fast, long long* stats, double* part, float* sums,
+                   int* next_ref, int* next_dist, unsigned short* blurred, int mframe,
+                   cudaStream_t stream) {
   if (n < 1 || h <= half || w <= half || in_q < 0 || in_q > 8 || (in_u8 && in_q != 0) ||
       ((next_ref != nullptr) != (next_dist != nullptr)) || (next_ref && (half < 2 || !next_taps)) ||
-      (blurred && (half < MHALF || !motion_taps)))
+      (blurred && (half < MHALF || !motion_taps)) ||
+      (fast ? (!part || !sums) : (!stats || !tab)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Taps t = make_taps(taps, 2 * half + 1, next_taps, 2 * (half / 2) + 1, motion_taps);
+  const ScaleArgs a = {ref, dist, n, h, w, in_q,
+                       make_taps(taps, 2 * half + 1, next_taps, 2 * (half / 2) + 1, motion_taps),
+                       tab, gain_limit, eps, nsq, stats, part, sums, next_ref, next_dist,
+                       blurred, mframe, stream};
   switch (half) {
-    case 8: return dispatch_scale<8>(ref, dist, in_u8, n, h, w, in_q, t, tab, gain_limit, eps, nsq, stats, next_ref, next_dist, blurred, mframe, stream);
-    case 4: return dispatch_scale<4>(ref, dist, in_u8, n, h, w, in_q, t, tab, gain_limit, eps, nsq, stats, next_ref, next_dist, blurred, mframe, stream);
-    case 2: return dispatch_scale<2>(ref, dist, in_u8, n, h, w, in_q, t, tab, gain_limit, eps, nsq, stats, next_ref, next_dist, blurred, mframe, stream);
-    case 1: return dispatch_scale<1>(ref, dist, in_u8, n, h, w, in_q, t, tab, gain_limit, eps, nsq, stats, next_ref, next_dist, blurred, mframe, stream);
+    case 8: return dispatch_scale<8>(a, in_u8, fast != 0);
+    case 4: return dispatch_scale<4>(a, in_u8, fast != 0);
+    case 2: return dispatch_scale<2>(a, in_u8, fast != 0);
+    case 1: return dispatch_scale<1>(a, in_u8, fast != 0);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,5 +1,6 @@
-"""Kernels 1 and 2 of the port: the integer VIF scale pass (with the fused
-motion SAD at scale 0) and the Q11 log2-table audit, ``csrc/vif_int.cu``.
+"""Kernels 1, 1f and 2 of the port: the integer VIF scale pass (with the
+fused motion SAD at scale 0) in its exact and its fast form, and the Q11
+log2-table audit, ``csrc/vif_int.cu``.
 
 Counterpart of ``pqa2_tpu/ops/pallas_vif_int.py``:
 
@@ -7,7 +8,10 @@ Counterpart of ``pqa2_tpu/ops/pallas_vif_int.py``:
     ``pl.pallas_call`` at pallas_vif_int.py:1021, kernel body
     ``_make_int_kernel`` :486) — one scale's Q16 moments, sigma planes,
     exact LUT statistic to per-frame integer accumulators, the next scale's
-    decimated planes, and at scale 0 the motion SAD;
+    decimated planes, and at scale 0 the motion SAD; with ``exact=False``
+    the same kernel's fast body (``exact_fused=False``, statistic
+    ``_statistic_int`` :467, ``precision="integer_fast"``): the same planes
+    and the smooth f32-log statistic, summed per frame as {num, den};
   * :func:`log2_table_audit` replaces ``log2_direct_exceptions``
     (pallas_call at :152) — on Hopper the statistic reads the table, so
     the audit checks the device lookup against ``golden/log2lut.py`` over
@@ -15,7 +19,8 @@ Counterpart of ``pqa2_tpu/ops/pallas_vif_int.py``:
 
 Each wrapper computes with its plain version (``ops/vif_int.py``) only for
 CPU tensors; for CUDA tensors it launches the kernel or raises. ``launches``
-on each wrapper counts its calls that launch (one per scale).
+on each wrapper counts its calls that launch (one per scale);
+``vif_int_scale.fast_launches`` counts those of the fast form apart.
 
 Design (``csrc/vif_int.cu``): one launch per scale stages a 48x32 tile of
 ref and dist with the filter's halo in shared memory (8-bit luma as its
@@ -56,7 +61,7 @@ from pqa2_tpu_torch.ops.vif_int import (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _VIF_ARGS = [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, ctypes.c_double,
-             ctypes.c_double, ctypes.c_longlong, _P, _P, _P, _P, _I, _P]
+             ctypes.c_double, ctypes.c_longlong, _I, _P, _P, _P, _P, _P, _P, _I, _P]
 _BLUR_ARGS = [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]
 _SAD_ARGS = [_P, _I, _I, _I, _P, _P]
 _AUDIT_ARGS = [_P, _P, _P]
@@ -127,12 +132,17 @@ def vif_int_scale(
     gain_limit: float,
     decimate: bool,
     motion_ref: Optional[torch.Tensor] = None,
+    exact: bool = True,
 ):
     """One integer VIF scale. Same contract as
     :func:`pqa2_tpu_torch.ops.vif_int.vif_int_scale_plain`:
 
-    ref/dist (N, H, W) contiguous codes -> ``(stats (N, 7) int64, next_ref,
-    next_dist, sad)``. On the card the planes are int32 (Q{in_q}, < 2^16;
+    ref/dist (N, H, W) contiguous codes -> ``(stats, next_ref, next_dist,
+    sad)``, ``stats`` the (N, 7) int64 accumulators of the exact statistic
+    or, with ``exact=False``, the (N, 2) f32 {num, den} sums of the fast
+    one (a second, fixed-order launch adds the blocks' float64 partials,
+    so the sums have the same bits on every run). On the card the planes
+    are int32 (Q{in_q}, < 2^16;
     below 2^8 at in_q 0) or, at in_q 0, uint8 (the bytes the source
     holds); ``motion_ref`` likewise. One launch computes the moments, the
     statistic, the next scale's Q8 planes and, when ref's frames are a run
@@ -143,7 +153,7 @@ def vif_int_scale(
     if device is None:
         return vif_int_scale_plain(ref, dist, scale=scale, in_q=in_q,
                                    gain_limit=gain_limit, decimate=decimate,
-                                   motion_ref=motion_ref)
+                                   motion_ref=motion_ref, exact=exact)
     if ref.dtype not in (torch.int32, torch.uint8):
         raise TypeError(f"ref has dtype {ref.dtype}, expected torch.int32 or torch.uint8")
     _build.check_tensor(ref, "ref", ref.dtype, 3, device)
@@ -172,7 +182,13 @@ def vif_int_scale(
         _check_8bit(ref, dist)
     with torch.cuda.device(device):
         st = _build.stream(device)
-        stats = torch.zeros((n, len(STATS)), dtype=torch.int64, device=device)
+        stats = part = sums = None
+        if exact:
+            stats = torch.zeros((n, len(STATS)), dtype=torch.int64, device=device)
+        else:
+            blocks = _build.function("pqa2_vif_int_blocks", [_I, _I], device)(h, w)
+            part = torch.empty((n, blocks, 2), dtype=torch.float64, device=device)
+            sums = torch.empty((n, 2), dtype=torch.float32, device=device)
         next_ref = next_dist = sad = blurred = None
         if decimate:
             next_ref = torch.empty((n, (h + 1) // 2, (w + 1) // 2), dtype=torch.int32,
@@ -190,9 +206,10 @@ def vif_int_scale(
             _build.ptr(ref), _build.ptr(dist), int(ref.dtype == torch.uint8), n, h, w,
             in_q, half, host_taps(("vif", scale), VIF_FILTERS_Q16[scale]),
             host_taps(("vif", scale + 1), VIF_FILTERS_Q16[scale + 1]) if decimate else None,
-            motion_taps, _build.ptr(log2_table_device(device)),
-            float(gain_limit), float(VIF_INT_EPS), int(SIGMA_NSQ_Q16),
-            _build.ptr(stats), _build.ptr(next_ref), _build.ptr(next_dist),
+            motion_taps, _build.ptr(log2_table_device(device) if exact else None),
+            float(gain_limit), float(VIF_INT_EPS), int(SIGMA_NSQ_Q16), int(not exact),
+            _build.ptr(stats), _build.ptr(part), _build.ptr(sums),
+            _build.ptr(next_ref), _build.ptr(next_dist),
             _build.ptr(blurred if off is not None else None), off or 0, st)
         if motion_ref is not None:
             lo, hi = (off, off + n) if off is not None else (0, 0)
@@ -203,11 +220,15 @@ def vif_int_scale(
             if m > 1:
                 _build.launch("pqa2_motion_sad", _SAD_ARGS, _build.ptr(blurred),
                               m, h, w, _build.ptr(sad), st)
-    vif_int_scale.launches += 1
-    return stats, next_ref, next_dist, sad
+    if exact:
+        vif_int_scale.launches += 1
+        return stats, next_ref, next_dist, sad
+    vif_int_scale.fast_launches += 1
+    return sums, next_ref, next_dist, sad
 
 
 vif_int_scale.launches = 0
+vif_int_scale.fast_launches = 0
 
 
 def vif_motion_features_int(
@@ -217,16 +238,17 @@ def vif_motion_features_int(
     core: slice,
     gain_limit: float = float("inf"),
     bit_depth: int = 8,
+    exact: bool = True,
 ):
     """(N, H, W) chunk luma (halos included) -> ``(vif (N_core, 4) f32,
     sad (N-1,) int64)``: VIF on the core frames, the motion SAD over every
-    frame (the driver of pqa2_tpu/ops/pallas_vif_int.py:1055). The chunk
-    becomes codes once, so the core frames stay a view of it and the
-    scale-0 launch blurs them for the SAD."""
+    frame (as pqa2_tpu/ops/pallas_vif_int.py:1055 does; ``exact``
+    picks the statistic). The chunk becomes codes once, so the core frames
+    stay a view of it and the scale-0 launch blurs them for the SAD."""
     codes, _ = scale0_codes(ref, bit_depth)
     return vif_cascade(codes[core], dist[core], gain_limit=gain_limit,
                        bit_depth=bit_depth, scale_fn=vif_int_scale,
-                       motion_ref=codes)
+                       motion_ref=codes, exact=exact)
 
 
 def _audit_plain(device: torch.device) -> torch.Tensor:

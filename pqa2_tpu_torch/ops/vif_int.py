@@ -19,6 +19,12 @@ division or breakpoint tables carry over:
 A scale produces seven int64 accumulators per frame (``STATS``); both this
 module and the kernel emit exactly these, and :func:`combine_stats` turns
 them into the feature.
+
+``exact=False`` (``precision="integer_fast"``) keeps the same integer
+moments and sigma planes and swaps the LUT statistic for the JAX package's
+smooth f32-log one (``pqa2_tpu/ops/vif_int.py:_statistic_fast``): a scale
+then produces the per-frame f32 (num, den) sums, and the feature is
+``num / den`` (:func:`fast_ratio`).
 """
 
 from __future__ import annotations
@@ -196,6 +202,50 @@ def _statistic_sums(s1i: torch.Tensor, s2i: torch.Tensor, s12i: torch.Tensor,
     return torch.stack([p.sum(dim=(-2, -1)) for p in parts], dim=-1)
 
 
+#: 4 / 255^2 of the flat branch, rounded to f32 once as the JAX package's
+#: weakly typed constant is.
+_FLAT_SCALE = float(np.float32(4.0 / (255.0 * 255.0)))
+
+
+def _statistic_fast(s1i: torch.Tensor, s2i: torch.Tensor, s12i: torch.Tensor,
+                    gain_limit: float) -> torch.Tensor:
+    """Per-pixel smooth f32-log statistic (pqa2_tpu/ops/vif_int.py:172)
+    reduced to (N, 2) f32 per-frame sums {num, den}.
+
+    Every f32 operation is the JAX package's, in its order: s = sigma /
+    65536 (s1, s2 clamped at 0 first); g = s12 / max(s1, 1e-10) where s12 >
+    0; sv^2 = max(s2 - g*s12, 0); the gain limit after sv^2 (libvmaf
+    order); on the log branch (s1 >= SIGMA_NSQ_Q16) num = log2(1 +
+    (g*g)*s1 / (sv^2 + 2)) and den = log2(1 + s1/2), elsewhere num = 1 -
+    s2 * 4/255^2 and den = 1. The JAX package casts the int64 sigma planes
+    to int32 first; the port keeps int64. A Q16 variance on the 8-bit scale
+    is below 2^30 (|covariance| too), so both give the same f32
+    (tests/test_torch_fast.py holds it at 16 bits with the largest codes).
+    The sums are float64, rounded to f32 once, as the kernel's are."""
+    s1 = s1i.clamp_min(0).float() / 65536.0
+    s2 = s2i.clamp_min(0).float() / 65536.0
+    s12 = s12i.float() / 65536.0
+    log_branch = s1i >= _NSQ
+    zero = torch.zeros((), dtype=torch.float32, device=s1.device)
+    one = torch.ones((), dtype=torch.float32, device=s1.device)
+    g = torch.where(s12 > 0.0, s12 / s1.clamp_min(1e-10), zero)
+    sv_sq = (s2 - g * s12).clamp_min(0.0)
+    g = g.clamp(max=float(gain_limit))
+    num_log = torch.log2(1.0 + g * g * s1 / (sv_sq + 2.0))
+    den_log = torch.log2(1.0 + s1 / 2.0)
+    num = torch.where(log_branch, num_log, 1.0 - s2 * _FLAT_SCALE)
+    den = torch.where(log_branch, den_log, one)
+    return torch.stack([num.double().sum(dim=(-2, -1)),
+                        den.double().sum(dim=(-2, -1))], dim=-1).float()
+
+
+def fast_ratio(sums: torch.Tensor) -> torch.Tensor:
+    """(N, 2) f32 {num, den} sums -> (N,) f32 vif_scale value
+    (pqa2_tpu/ops/pallas_vif_int.py:1151)."""
+    num, den = sums[:, 0], sums[:, 1]
+    return torch.where(den > 0, num / den, torch.ones_like(num))
+
+
 def _pf(v: torch.Tensor) -> torch.Tensor:
     """int64 sum -> f32 exactly as the JAX package's (hi, lo) pair:
     ``f32(v >> 16) * 65536 + f32(v & 0xFFFF)`` (ops/vif_int.py:525)."""
@@ -231,20 +281,23 @@ def vif_int_scale_plain(
     gain_limit: float,
     decimate: bool,
     motion_ref: Optional[torch.Tensor] = None,
+    exact: bool = True,
 ):
     """One VIF scale, the plain twin of the ``vif_int_scale`` kernel.
 
     ref/dist: (N, H, W) int32 codes (Q{in_q}) of the core frames.
-    Returns ``(stats (N, 7) int64, next_ref, next_dist, sad)``: the next
-    scale's Q8 int32 planes when ``decimate`` (else None), and with
-    ``motion_ref`` (M, H, W) int32 codes of every chunk frame the (M-1,)
-    int64 SADs of consecutive blurred frames (else None)."""
+    Returns ``(stats, next_ref, next_dist, sad)``: ``stats`` the (N, 7)
+    int64 accumulators of ``STATS`` (``exact``) or the (N, 2) f32 {num,
+    den} sums of the fast statistic; the next scale's Q8 int32 planes when
+    ``decimate`` (else None), and with ``motion_ref`` (M, H, W) int32 codes
+    of every chunk frame the (M-1,) int64 SADs of consecutive blurred
+    frames (else None)."""
     from pqa2_tpu_torch.ops.motion_int import blur_int_batched, sad_pairs_int
 
     r = ref.long()
     d = dist.long()
-    stats = _statistic_sums(*_sigma_planes(r, d, VIF_FILTERS_Q16[scale], in_q),
-                            gain_limit)
+    statistic = _statistic_sums if exact else _statistic_fast
+    stats = statistic(*_sigma_planes(r, d, VIF_FILTERS_Q16[scale], in_q), gain_limit)
     next_ref = next_dist = sad = None
     if decimate:
         taps = VIF_FILTERS_Q16[scale + 1]
@@ -263,12 +316,14 @@ def vif_cascade(
     bit_depth: int,
     scale_fn: Callable,
     motion_ref: Optional[torch.Tensor] = None,
+    exact: bool = True,
 ):
     """The four-scale VIF cascade around a per-scale function.
 
     ref/dist: (N, H, W) luma of the core frames (codes, or f32 on the
     8-bit scale). ``motion_ref``: (M, H, W) reference luma of the whole
     chunk, halos included, for the motion SAD fused into scale 0.
+    ``exact`` picks the statistic (False: ``precision="integer_fast"``).
     Returns ``(vif (N, 4) f32, sad (M-1,) int64 or None)``."""
     r, in_q = scale0_codes(ref, bit_depth)
     d, _ = scale0_codes(dist, bit_depth)
@@ -280,10 +335,11 @@ def vif_cascade(
         stats, nr, nd, s = scale_fn(
             r.contiguous(), d.contiguous(), scale=scale, in_q=in_q,
             gain_limit=gain_limit, decimate=scale < 3,
-            motion_ref=mref if scale == 0 else None)
+            motion_ref=mref if scale == 0 else None, exact=exact)
         if scale == 0:
             sad = s
-        feats.append(combine_stats(stats, r.shape[-2] * r.shape[-1]))
+        feats.append(combine_stats(stats, r.shape[-2] * r.shape[-1]) if exact
+                     else fast_ratio(stats))
         r, d, in_q = nr, nd, 8
     return torch.stack(feats, dim=-1), sad
 
@@ -293,9 +349,11 @@ def vif_features_int_batched(
     dist: torch.Tensor,
     gain_limit: float = float("inf"),
     bit_depth: int = 8,
+    exact: bool = True,
 ) -> torch.Tensor:
     """(N, H, W) luma pair -> (N, 4) [vif_scale0..3], plain version
-    (pqa2_tpu/ops/vif_int.py:619, exact statistic)."""
+    (pqa2_tpu/ops/vif_int.py:619): the exact LUT statistic, or with
+    ``exact=False`` the smooth f32-log one."""
     vif, _ = vif_cascade(ref, dist, gain_limit=gain_limit, bit_depth=bit_depth,
-                         scale_fn=vif_int_scale_plain)
+                         scale_fn=vif_int_scale_plain, exact=exact)
     return vif

@@ -5,7 +5,8 @@ Two feature families, chosen by the model (:func:`resolve_precision`):
   * integer — every integer-trained model (the default ``vmaf_v0.6.1``
     among them): integer VIF over four scales with the motion SAD fused
     into scale 0 (``ops/cuda_vif_int.py``), integer ADM2 over four db2
-    levels (``ops/cuda_adm_int.py``);
+    levels (``ops/cuda_adm_int.py``); ``precision="integer_fast"`` runs
+    the same with VIF's smooth f32-log statistic in place of the LUT one;
   * float — the float-trained models (``vmaf_float_v0.6.1``, its NEG and
     4K variants, the bootstrap ``vmaf_float_b_v0.6.3``): f32 VIF over four
     scales with the ``classic`` statistic (``ops/cuda_vif.py``), whose
@@ -61,10 +62,12 @@ def model_feature_params(model, precision: Optional[str] = None, *,
     """Extraction knobs implied by a model's feature options
     (pqa2_tpu/pipeline/features.py:232).
 
-    For the integer family this also audits the statistic's Q11 log2
+    For ``"integer"`` this also audits the exact statistic's Q11 log2
     lookup on ``device`` (:func:`log2_table_audit`, 32768 mantissas),
     where the JAX package runs ``log2_direct_exceptions``; it runs at
-    every call, i.e. once per scored clip, and raises on a mismatch."""
+    every call, i.e. once per scored clip, and raises on a mismatch.
+    ``"integer_fast"`` reads no table, so it runs no audit (as the JAX
+    package, pqa2_tpu/pipeline/features.py:251-258)."""
     if hasattr(model, "models"):  # BootstrapModel: sub-models share options
         model = model.models[0]
     out = {
@@ -98,16 +101,14 @@ def extract_features_batched(
     the integer path recover the exact native codes (the float path is
     scale-invariant and casts to f32 on the device: the upload stays
     uint8)."""
-    if precision == "integer_fast":
-        raise NotImplementedError(
-            "integer_fast (smooth-log VIF statistic): ROADMAP Q1.10")
-    if precision not in ("integer", "float"):
+    if precision not in ("integer", "integer_fast", "float"):
         raise ValueError(f"unknown feature precision {precision!r}")
     n, h, w = ref.shape
     core = slice(1 if has_prev else 0, n - 1 if has_next else n)
-    if precision == "integer":
+    if precision != "float":
         vif, sad = vif_motion_features_int(ref, dist, core=core, gain_limit=vif_gain,
-                                           bit_depth=bit_depth)
+                                           bit_depth=bit_depth,
+                                           exact=precision == "integer")
         motion, motion2 = features_from_sad_prev(
             motion_from_sad(sad, h, w), n, has_prev=has_prev, has_next=has_next)
         adm2 = adm_features_int(ref[core], dist[core], gain_limit=adm_gain,

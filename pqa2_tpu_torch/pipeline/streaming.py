@@ -24,18 +24,20 @@ import torch
 from pqa2_tpu_torch.io.video import VideoReader
 from pqa2_tpu_torch.models.loader import BootstrapModel, VMAFModel
 from pqa2_tpu_torch.models.registry import get_model
-from pqa2_tpu_torch._device import require_cuda
-from pqa2_tpu_torch.models.svr import BootstrapPredictor, predictor_for_model
-from pqa2_tpu_torch.ops.cuda_ssim import ssim_sse_plane
-from pqa2_tpu_torch.ops.psnr import psnr_from_mse_np, psnr_planes_batched
-from pqa2_tpu_torch.ops.ssim import ssim_db_np
 from pqa2_tpu_torch.pipeline.features import (
     extract_features_batched,
     fetch_features,
     model_feature_params,
 )
-from pqa2_tpu_torch.pipeline.scoring import DEFAULT_CHUNK_SIZE, ClipScores
-from pqa2_tpu_torch.utils.chunking import pad_frames
+from pqa2_tpu_torch.pipeline.scoring import (
+    DEFAULT_CHUNK_SIZE,
+    ClipScores,
+    clip_scores,
+    concat_parts,
+    plane_metrics,
+    resolve_device,
+    upload,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -90,19 +92,6 @@ def _chunk_producer(ref_path, dist_path, chunk_size, out_q, max_frames, stop,
             r.close()
 
 
-def _upload(frames: List[np.ndarray], device: torch.device, div: float) -> torch.Tensor:
-    """Stack frames, copy the SOURCE dtype to the device, and bring >8-bit
-    codes onto the 8-bit scale there (f32 on the host would quadruple the
-    copy). uint16 travels as int32: torch has no general uint16 ops."""
-    a = np.stack(frames)
-    if a.dtype == np.uint16:
-        a = a.astype(np.int32)
-    t = torch.from_numpy(a).to(device)
-    if div != 1.0:
-        t = t.float() / div
-    return t
-
-
 def stream_score(
     ref_path: str,
     dist_path: str,
@@ -121,13 +110,10 @@ def stream_score(
 
     subsample=k scores every k-th source frame (libvmaf n_subsample);
     precision overrides the model-driven extractor choice."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        device = require_cuda(device)
+    device = resolve_device(device)
     subsample = max(1, int(subsample))
     mdl = get_model(model) if isinstance(model, str) else model
     params = model_feature_params(mdl, precision, device=device)
-    predictor = predictor_for_model(mdl, device=device)
 
     q: "queue.Queue" = queue.Queue(maxsize=2)
     stop = threading.Event()
@@ -184,8 +170,8 @@ def stream_score(
             # 8-bit scale (a shallower stream left as codes would land
             # 2^(depth diff) dark in to_native_grid; pqa2_tpu
             # streaming.py:221-228).
-            rb = _upload(ref_y, device, ref_div)
-            db = _upload(dist_y, device, dist_div)
+            rb = upload(ref_y, device, ref_div)
+            db = upload(dist_y, device, dist_div)
             if depth > 8:
                 rb, db = rb.float(), db.float()
             feats = extract_features_batched(rb, db, has_prev=has_prev,
@@ -194,79 +180,18 @@ def stream_score(
             feats_parts.append(fetch_features(feats))
 
             if with_psnr or with_ssim:
-                n0 = len(ref_frames)
-                lead = 1 if has_prev else 0
-                max_div = float(1 << (depth - 8))
-                peak = float((1 << depth) - 1)
-
-                def _pad(x):
-                    # Short tail chunks pad to the chunk shape, as in the JAX
-                    # package; the pad frames' outputs are sliced off below
-                    # (trap 9).
-                    return pad_frames(x, chunk_size)
-
-                def _planes(frames, key, div):
-                    return _pad(_upload([f[key] for f in frames], device, div).float())
-
-                def _unpad(d):
-                    return {k: np.asarray(v)[:n0] for k, v in d.items()}
-
                 # Luma reuses the tensors uploaded for the features (core
                 # frames, without the motion halo).
-                planes = {
-                    "y": (_pad(rb[lead: lead + n0].float()),
-                          _pad(db[lead: lead + n0].float())),
-                    "u": (_planes(ref_frames, "u", ref_div),
-                          _planes(dist_frames, "u", dist_div)),
-                    "v": (_planes(ref_frames, "v", ref_div),
-                          _planes(dist_frames, "v", dist_div)),
-                }
-            if with_psnr and with_ssim:
-                # One kernel pass per plane gives SSIM and the SSE; the
-                # 8-bit-scale SSE rescales exactly to native codes.
-                part: Dict[str, np.ndarray] = {}
-                pstats: Dict[str, np.ndarray] = {}
-                tot, tot_w, tot_sse = 0.0, 0, 0.0
-                for p, (r, d) in planes.items():
-                    vv, sse8 = ssim_sse_plane(r.contiguous(), d.contiguous(),
-                                              bit_depth=depth)
-                    vv = vv.cpu().numpy()
-                    part[f"ssim_{p}"] = vv
-                    w = r.shape[-2] * r.shape[-1]
-                    tot = tot + vv * w
-                    tot_w += w
-                    sse = sse8.cpu().numpy() * (max_div * max_div)
-                    mse = sse / w
-                    pstats[f"mse_{p}"] = mse
-                    pstats[f"psnr_{p}"] = psnr_from_mse_np(mse, max_value=peak)
-                    tot_sse = tot_sse + sse
-                pstats["mse_avg"] = tot_sse / tot_w
-                pstats["psnr_avg"] = psnr_from_mse_np(pstats["mse_avg"], max_value=peak)
-                psnr_parts.append(_unpad(pstats))
-                part["ssim_all"] = tot / tot_w
-                part["ssim_db"] = ssim_db_np(part["ssim_all"])
-                ssim_parts.append(_unpad(part))
-            elif with_psnr:
-                stats = psnr_planes_batched(*(planes[p][0] for p in "yuv"),
-                                            *(planes[p][1] for p in "yuv"))
-                for p in ("y", "u", "v", "avg"):
-                    stats[f"mse_{p}"] = stats[f"mse_{p}"] * (max_div * max_div)
-                    stats[f"psnr_{p}"] = psnr_from_mse_np(stats[f"mse_{p}"],
-                                                          max_value=peak)
-                psnr_parts.append(_unpad(stats))
-            elif with_ssim:
-                part = {}
-                tot, tot_w = 0.0, 0
-                for p, (r, d) in planes.items():
-                    vv = ssim_sse_plane(r.contiguous(), d.contiguous(),
-                                        bit_depth=depth)[0].cpu().numpy()
-                    part[f"ssim_{p}"] = vv
-                    w = r.shape[-2] * r.shape[-1]
-                    tot = tot + vv * w
-                    tot_w += w
-                part["ssim_all"] = tot / tot_w
-                part["ssim_db"] = ssim_db_np(part["ssim_all"])
-                ssim_parts.append(_unpad(part))
+                core = slice(1 if has_prev else 0, (1 if has_prev else 0) + len(ref_frames))
+                planes = {"y": (rb[core].float(), db[core].float())}
+                for p in "uv":
+                    planes[p] = (upload([f[p] for f in ref_frames], device, ref_div).float(),
+                                 upload([f[p] for f in dist_frames], device, dist_div).float())
+                pstats, sstats = plane_metrics(planes, depth, with_psnr, with_ssim)
+                if pstats is not None:
+                    psnr_parts.append(pstats)
+                if sstats is not None:
+                    ssim_parts.append(sstats)
 
             total += len(ref_frames)
             if frame_cb is not None:
@@ -288,29 +213,7 @@ def stream_score(
     if total == 0:
         raise ValueError("empty input video")
 
-    features = {k: np.concatenate([p[k] for p in feats_parts]) for k in feats_parts[0]}
-    x = torch.as_tensor(np.stack([features[k] for k in mdl.feature_names], axis=-1),
-                        dtype=torch.float32, device=device)
-    with torch.no_grad():
-        if isinstance(predictor, BootstrapPredictor):
-            vmaf_t, boot_t = predictor(x)
-            vmaf, boot = vmaf_t.cpu().numpy(), boot_t.cpu().numpy()
-        else:
-            vmaf, boot = predictor(x).cpu().numpy(), None
-
     max_depth = max(meta.get("ref_depth", 8), meta.get("dist_depth", 8))
-    out = ClipScores(
-        model_name=mdl.name if hasattr(mdl, "name") else str(model),
-        feature_names=tuple(mdl.feature_names),
-        features=features,
-        vmaf=vmaf,
-        bootstrap=boot,
-        peak=float((1 << max_depth) - 1),
-        uses_integer_features=getattr(mdl, "uses_integer_features", True),
-        frame_step=subsample,
-    )
-    if psnr_parts:
-        out.psnr = {k: np.concatenate([p[k] for p in psnr_parts]) for k in psnr_parts[0]}
-    if ssim_parts:
-        out.ssim = {k: np.concatenate([p[k] for p in ssim_parts]) for k in ssim_parts[0]}
-    return out
+    return clip_scores(mdl, concat_parts(feats_parts), device=device,
+                       psnr=concat_parts(psnr_parts), ssim=concat_parts(ssim_parts),
+                       peak=float((1 << max_depth) - 1), frame_step=subsample)

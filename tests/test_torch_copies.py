@@ -2,7 +2,8 @@
 
 pqa2_tpu_torch imports nothing of pqa2_tpu: it keeps copies of the numpy
 oracles (``golden/``), the model loader and registry with the nine packaged
-``data/*.npz`` files, the video readers (``io/``) and two utilities. Here
+``data/*.npz`` files, the video readers (``io/``), two utilities and the
+settings store (``app/options_manager.py``). Here
 every copied constant and table is equal to the JAX package's, every copied
 oracle gives the identical output on seeded inputs, every packaged model
 loads to equal arrays, and the npz files are byte-identical. All exact: the
@@ -17,6 +18,7 @@ worker process).
 """
 
 import importlib
+import json
 import pathlib
 
 import numpy as np
@@ -189,3 +191,33 @@ def test_utils_copies():
     meter.add(2)
     meter.add(2)
     assert progress == [50, 100] and meter.fps > 0
+
+
+def test_options_manager_copy(tmp_path):
+    """The settings store: the same defaults, the same file read back the
+    same way by both (old files backfilled with newer keys), and every
+    method but the four device-discovery ones, which call the capture
+    backends (app/devices.py) that the port does not have."""
+    from pqa2_tpu.app import options_manager as jax_om
+    from pqa2_tpu_torch.app import options_manager as port_om
+
+    _equal(jax_om.default_settings(), port_om.default_settings(), "default_settings")
+    left_out = {"get_decklink_devices", "get_decklink_formats", "test_device_connection",
+                "get_ffmpeg_path"}
+    jax_methods = {k for k in vars(jax_om.OptionsManager) if not k.startswith("__")}
+    port_methods = {k for k in vars(port_om.OptionsManager) if not k.startswith("__")}
+    assert port_methods == jax_methods - left_out
+    old = {"vmaf": {"feature_precision": "integer_fast", "pool_method": "min"},
+           "tpu": {"chunk_size": 8}}
+    for name in ("jax", "port"):
+        (tmp_path / f"{name}.json").write_text(json.dumps(old))
+    a = jax_om.OptionsManager(str(tmp_path / "jax.json"), save_debounce_s=0)
+    b = port_om.OptionsManager(str(tmp_path / "port.json"), save_debounce_s=0)
+    _equal(a.get_settings(), b.get_settings(), "loaded settings")
+    for m in (a, b):
+        m.update_setting("vmaf", "feature_subsample", 2)
+        m.flush()
+    assert (tmp_path / "jax.json").read_text() == (tmp_path / "port.json").read_text()
+    assert b.get_setting("vmaf", "feature_precision") == "integer_fast"
+    assert b.get_setting("tpu", "chunk_size") == 8
+    assert b.get_setting("tpu", "profile_dir") == a.get_setting("tpu", "profile_dir") == ""

@@ -119,7 +119,9 @@ def test_float_goldens_pinned():
     """The float branch of extract_features_batched and the predictor on the
     clip of tests/goldens/regression_golden.json, held to the pins that
     tests/test_goldens.py holds the JAX package to (float precision: VMAF
-    atol 0.01; features adm2 2e-4, motion2 1e-3, vif 2e-4)."""
+    atol 0.01; features adm2 2e-4, motion2 1e-3, vif 2e-4); and
+    ``score_clip`` with chunk_size=4, as that test calls the JAX one, held
+    to the same VMAF pins."""
     for model_name in ("vmaf_v0.6.1", "vmaf_v0.6.1neg", "vmaf_4k_v0.6.1",
                        "vmaf_float_v0.6.1"):
         _golden_pins(model_name)
@@ -132,6 +134,7 @@ def _golden_pins(model_name):
     from pqa2_tpu_torch.models.registry import get_model
     from pqa2_tpu_torch.models.svr import predictor_for_model
     from pqa2_tpu_torch.pipeline.features import extract_features_batched, model_feature_params
+    from pqa2_tpu_torch.pipeline.scoring import score_clip
 
     golden = json.loads((pathlib.Path(__file__).parent / "goldens"
                          / "regression_golden.json").read_text())
@@ -153,6 +156,9 @@ def _golden_pins(model_name):
     x = torch.stack([feats[k] for k in model.feature_names], dim=-1)
     vmaf = predictor_for_model(model)(x).numpy()
     np.testing.assert_allclose(vmaf, golden["vmaf"][model_name], rtol=0, atol=0.01)
+    chunked = score_clip(ref.astype(np.float32), dist.astype(np.float32), model=model_name,
+                         chunk_size=4, precision="float", device="cpu")
+    np.testing.assert_allclose(chunked.vmaf, golden["vmaf"][model_name], rtol=0, atol=0.01)
     if model_name == "vmaf_v0.6.1":
         for i, fr in enumerate(golden["frames"]):
             assert abs(feats["adm2"][i].item() - fr["adm2"]) <= 2e-4

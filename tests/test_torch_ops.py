@@ -488,9 +488,15 @@ def test_wrappers_use_plain_versions_on_cpu():
     d = torch.from_numpy(dist.astype(np.int32))
     before = (cuda_vif_int.vif_int_scale.launches, cuda_adm_int.adm_int_level.launches,
               cuda_ssim.ssim_sse_plane.launches)
-    kw = dict(scale=0, in_q=0, gain_limit=float("inf"), decimate=True, motion_ref=r)
-    for a, b in zip(cuda_vif_int.vif_int_scale(r, d, **kw), vif_int_scale_plain(r, d, **kw)):
-        assert torch.equal(a, b)
+    fast_before = cuda_vif_int.vif_int_scale.fast_launches
+    for exact in (True, False):
+        kw = dict(scale=0, in_q=0, gain_limit=float("inf"), decimate=True, motion_ref=r,
+                  exact=exact)
+        got = cuda_vif_int.vif_int_scale(r, d, **kw)
+        assert got[0].shape == ((3, 7) if exact else (3, 2))
+        for a, b in zip(got, vif_int_scale_plain(r, d, **kw)):
+            assert torch.equal(a, b)
+    assert cuda_vif_int.vif_int_scale.fast_launches == fast_before
     kw = dict(level=0, extra_row_shift=0, gain_limit=100.0)
     for a, b in zip(cuda_adm_int.adm_int_level(r << 4, d << 4, **kw),
                     adm_level_plain(r << 4, d << 4, **kw)):
@@ -682,13 +688,20 @@ def test_adm_quotient_audit_plain_path():
 
 
 def test_pad_frames_and_iter_chunks():
-    from pqa2_tpu_torch.pipeline.scoring import iter_chunks, pool_metric
-    from pqa2_tpu_torch.utils.chunking import pad_frames
+    """Chunk bounds, pooling, and the chunk upload that replaced the JAX
+    package's padding: a chunk goes up as it is (the last one unpadded), in
+    its source dtype, >8-bit codes brought onto the 8-bit scale there."""
+    from pqa2_tpu_torch.pipeline.scoring import iter_chunks, pool_metric, upload
 
-    x = torch.arange(12).reshape(3, 2, 2)
-    p = pad_frames(x, 5)
-    assert p.shape == (5, 2, 2) and torch.equal(p[3], x[2]) and torch.equal(p[4], x[2])
-    assert pad_frames(x, 2) is x
+    cpu = torch.device("cpu")
+    x = np.arange(12, dtype=np.uint8).reshape(3, 2, 2)
+    t = upload(x[1:], cpu)
+    assert t.dtype == torch.uint8 and torch.equal(t, torch.from_numpy(x[1:]))
+    assert torch.equal(upload([x[0], x[2]], cpu), torch.from_numpy(x[::2]))
+    assert upload(t, cpu) is t
+    t10 = upload(x.astype(np.uint16) * 4 + 1, cpu, 4.0)
+    assert t10.dtype == torch.float32
+    assert torch.equal(t10, torch.from_numpy(x).float() + 0.25)
     assert list(iter_chunks(9, 4)) == [(0, 4, False, True), (4, 8, True, True),
                                        (8, 9, True, False)]
     v = np.array([80.0, 90.0, 100.0])
@@ -697,17 +710,27 @@ def test_pad_frames_and_iter_chunks():
 
 
 def test_float_family_and_integer_fast_wait_for_q1_10():
-    """The float family runs (ROADMAP Q1.10 done for it); only integer_fast
-    still waits for Q1.10."""
+    """Both remaining families of ROADMAP Q1.10 run: float and integer_fast
+    return the seven features (integer_fast: VIF's smooth-log statistic,
+    ADM and motion those of the integer family)."""
     from pqa2_tpu_torch.pipeline.features import extract_features_batched
 
     x = torch.zeros((2, 24, 24), dtype=torch.uint8)
-    feats = extract_features_batched(x, x, precision="float", vif_variant="classic")
-    assert set(feats) == {"adm2", "motion", "motion2", "vif_scale0", "vif_scale1",
-                          "vif_scale2", "vif_scale3"}
-    assert all(v.shape == (2,) and v.dtype == torch.float32 for v in feats.values())
-    with pytest.raises(NotImplementedError, match="Q1.10"):
-        extract_features_batched(x, x, precision="integer_fast")
+    names = {"adm2", "motion", "motion2", "vif_scale0", "vif_scale1", "vif_scale2",
+             "vif_scale3"}
+    for precision in ("float", "integer_fast"):
+        feats = extract_features_batched(x, x, precision=precision, vif_variant="classic")
+        assert set(feats) == names
+        assert all(v.shape == (2,) and v.dtype == torch.float32 for v in feats.values())
+    ref, dist = _smooth_pair(9, 3, 40, 56)
+    r, d = torch.from_numpy(ref), torch.from_numpy(dist)
+    fast = extract_features_batched(r, d, precision="integer_fast")
+    exact = extract_features_batched(r, d, precision="integer")
+    for k in ("adm2", "motion", "motion2"):
+        assert torch.equal(fast[k], exact[k])
+    assert 0 < (fast["vif_scale0"] - exact["vif_scale0"]).abs().max() < 1e-3
+    with pytest.raises(ValueError, match="unknown feature precision"):
+        extract_features_batched(r, d, precision="integer_exact")
 
 
 # -- the kernels themselves: on an sm_90 card only ---------------------------
@@ -783,6 +806,58 @@ def test_kernel_vif_int_scale_uint8_chunk(cuda_device):
         want = vif_int_scale_plain(m[core], d[core], **kw)
         for a, b in zip(got, want):
             assert torch.equal(a, b)
+
+
+def _vif_fast_scales_match(r, d, m, in_q, gain):
+    """Kernel 1f at all four scales against its plain version on the card:
+    decimated planes and SAD equal, the {num, den} sums within 1e-5
+    relative, the features within 2e-6 (the JAX package's kernel-vs-twin
+    budget, tests/test_pallas_int.py:20), a second launch the same bits."""
+    from pqa2_tpu_torch.ops.cuda_vif_int import vif_int_scale
+    from pqa2_tpu_torch.ops.vif_int import fast_ratio, vif_int_scale_plain
+
+    for scale in range(4):
+        kw = dict(scale=scale, in_q=in_q, gain_limit=gain, decimate=scale < 3,
+                  motion_ref=m if scale == 0 else None, exact=False)
+        got = vif_int_scale(r, d, **kw)
+        again = vif_int_scale(r, d, **kw)
+        want = vif_int_scale_plain(r, d, **kw)
+        for a, b in zip(got[1:], want[1:]):
+            assert (a is None and b is None) or torch.equal(a, b)
+        for a, b in zip(got, again):
+            assert (a is None and b is None) or torch.equal(a, b)
+        assert got[0].shape == want[0].shape and got[0].dtype == torch.float32
+        rel = ((got[0].double() - want[0].double()).abs()
+               / want[0].double().abs().clamp_min(1e-30)).max().item()
+        assert rel <= 1e-5
+        assert (fast_ratio(got[0]) - fast_ratio(want[0])).abs().max().item() <= 2e-6
+        r, d, in_q = got[1], got[2], 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth,kind", [(8, "uint8"), (8, "int32"), (10, "int32"),
+                                        (16, "int32")])
+def test_kernel_vif_int_scale_fast_edges(cuda_device, depth, kind):
+    """Kernel 1f on the edge frames of kernel 1 (1080p and 3840x2160, gain
+    inf and 1.0, the motion SAD at scale 0)."""
+    for h, w in ((1080, 1920), (2160, 3840)):
+        ref, dist = _edge_frames(h, w, depth)
+        dt = torch.uint8 if kind == "uint8" else torch.int32
+        r = torch.from_numpy(ref).to(cuda_device, dt)
+        d = torch.from_numpy(dist).to(cuda_device, dt)
+        for gain in (float("inf"), 1.0):
+            _vif_fast_scales_match(r, d, r, max(depth - 8, 0), gain)
+
+
+@pytest.mark.cuda
+def test_kernel_vif_int_scale_fast_uint8_chunk(cuda_device):
+    """Kernel 1f on the main path's scale-0 call: uint8 luma, the core frames
+    a view of the chunk."""
+    ref, dist = _smooth_pair(16, 6, 135, 241)
+    m = torch.from_numpy(ref).to(cuda_device)
+    d = torch.from_numpy(dist).to(cuda_device)
+    for gain in (float("inf"), 1.0):
+        _vif_fast_scales_match(m[1:5], d[1:5], m, 0, gain)
 
 
 @pytest.mark.cuda
