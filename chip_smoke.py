@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                  # needs one sm_90 card
     python3 chip_smoke.py --profile DIR    # plus torch.profiler passes
-    python3 chip_smoke.py --sass DIR       # plus the VIF and ADM kernels' SASS opcodes
+    python3 chip_smoke.py --sass DIR       # plus the VIF, ADM and motion kernels' SASS opcodes
 
 Phases, run in the order 1, 3, 2, 4 so that the slices run in a process
 that has done nothing else yet, as a user's does (each prints its lines;
@@ -17,13 +17,18 @@ any failure raises and the exit code is 1):
      both halos; integer VIF on the uint8 luma as the main path hands it
      over and on int32 codes) and 960x540 chroma, plus one 3840x2160 and
      one 4096x4096 pair for VIF and ADM. Integer outputs must be equal;
-     SSIM within 1e-6; the log2 audit 0 mismatches. The float kernels (VIF
-     with the classic statistic, gain inf and 1.0; ADM, gain 100 and 1.0;
-     the motion SAD) on the 1080p chunk and a 3840x2160 pair (ADM also on
-     a 4096x4096 one): decimated and approximation planes equal in every
-     bit, per-frame sums within 1e-5 relative, features within 1e-5, and a
-     second launch on the same input gives the same bits. Both VIF kernels also on edge frames at 1080p and
-     3840x2160 (all-peak against all-0 and the reverse, 0/peak
+     SSIM within 1e-6; the log2 audit's uncached launch 0 mismatches, and
+     exactly 1 against one deliberately wrong expected value. The float
+     kernels (VIF with the classic statistic, gain inf and 1.0; ADM, gain
+     100 and 1.0; the motion SAD) on the 1080p chunk and a 3840x2160 pair
+     (ADM also on a 4096x4096 one): decimated and approximation planes
+     equal in every bit, per-frame sums within 1e-5 relative, features
+     within 1e-5, and a second launch on the same input gives the same
+     bits. The motion SAD also alone on the 1080p chunk, on 1, 2 and
+     RUN + 1 frames (a run of frames split across blocks), on 3840x2160
+     and on an odd width: frame 0 exactly 0, the rest within 1e-5
+     relative, a second launch the same bits. Both VIF kernels also on
+     edge frames at 1080p and 3840x2160 (all-peak against all-0 and the reverse, 0/peak
      checkerboards of single pixels and of 8x8 blocks against their
      inverses) at 8 bits (integer VIF on uint8 and int32), 10 and 16 bits
      (the largest codes; float VIF on the 8-bit scale, both statistics).
@@ -43,14 +48,16 @@ any failure raises and the exit code is 1):
      and with ``vmaf_v0.6.1`` at ``feature_precision="integer_fast"``, all
      with PSNR+SSIM (chunks 32+32+8): their artifacts, every kernel's launch
      count over each run (the counts are set to 0 just before it and read
-     just after; the float run must launch kernels 5-7 and none of kernels
-     1-3, the integer_fast run kernel 1f and neither kernel 1 nor the log2
-     audit), frames 0 and 32 against the port's numpy oracles
+     just after; the first integer run must audit the log2 lookup once,
+     as the first integer clip of a process does; the float run must launch
+     kernels 5-7 and none of kernels 1-3, the integer_fast run kernel 1f
+     and neither kernel 1 nor the log2 audit), frames 0 and 32 against the
+     port's numpy oracles
      (``pqa2_tpu_torch.golden``), and the integer_fast features within 1e-3
      of the integer run's. Then the in-memory path: the same pair decoded
      once, through ``VMAFAnalyzer.analyze_frames`` with ``vmaf_v0.6.1``
      and PSNR+SSIM, must give the integer run's features, VMAF, PSNR and
-     SSIM in every bit;
+     SSIM in every bit, with no log2 audit (the process has passed one);
   4. CUDA-event times of each kernel against its plain version at 1080p,
      each kernel's bound (the least time the card could take for the same
      work), and each slice's frames per second: its first run and three
@@ -224,8 +231,18 @@ def phase_kernels(torch, device, results):
     from pqa2_tpu_torch.ops.ssim import ssim_sse_plane_plain
     from pqa2_tpu_torch.ops.vif_int import fast_ratio, to_native_grid, vif_int_scale_plain
 
-    mism = cuda_vif_int.log2_table_audit(device)
-    log(f"[kernels] log2 audit: {mism} mismatches of 32768 mantissas (x2 shifts)")
+    # The audit's uncached launch (the main path caches a passed audit).
+    mism = cuda_vif_int._log2_audit_launch(device)
+    if mism != 0:
+        raise AssertionError(f"log2 audit: {mism} mismatches")
+    want = cuda_vif_int._log2_expected(device).clone()
+    want[32768 + 12345] += 1
+    forced = cuda_vif_int._log2_audit_launch(device, want)
+    if forced != 1:
+        raise AssertionError(f"log2 audit counted {forced} mismatches against one wrong "
+                             f"expected value, not 1")
+    log(f"[kernels] log2 audit: {mism} mismatches of 32768 mantissas (x2 shifts), "
+        f"compared on the card; {forced} against one wrong expected value")
     results["log2_table_audit"]["max_abs_err"] = float(mism)
 
     err = {"vif_int_scale": 0.0, "adm_int_level": 0.0, "vif_int_scale_fast": 0.0}
@@ -466,9 +483,29 @@ def phase_float_kernels(torch, device, results, ref, dist):
             for gain in (100.0, 1.0):
                 adm_all_levels(r1, d1, f"edges {label} {depth}-bit", gain)
             del r1, d1
-    check_bits(torch, "motion_sad (second launch)", cuda_motion.motion_sad(mf),
-               cuda_motion.motion_sad(mf))
+    def motion_check(m, label):
+        """Kernel 7 alone: frame 0 exactly 0, the rest within 1e-5 relative
+        of the plain version, a second launch the same bits."""
+        got = cuda_motion.motion_sad(m)
+        sp = motion_sad_plain(m)
+        check_bits(torch, f"motion_sad {label} (second launch)", got, cuda_motion.motion_sad(m))
+        if got[0].item() != 0.0:
+            raise AssertionError(f"motion_sad {label}: frame 0 is {got[0].item()}")
+        rel = check_rel(torch, f"motion_sad {label}", got[1:], sp[1:], FLOAT_SUM_RTOL) \
+            if len(got) > 1 else 0.0
+        err["motion_sad"] = max(err["motion_sad"], (got - sp).abs().max().item())
+        log(f"[kernels] motion_sad {label}: frame 0 exactly 0, max rel {rel:.3e}, "
+            f"second launch bit-equal")
+
+    run = cuda_motion.RUN
+    motion_check(mf, "1080p 34 frames")
+    for k in (1, 2, run + 1):
+        motion_check(mf[:k], f"1080p {k} frame{'s' if k > 1 else ''}")
+    motion_check(mf[:5, :, :1918].contiguous(), "1080x1918 5 frames (4-byte copies)")
     del rf, df, mf
+    m4 = smooth_frames(torch, run + 1, 2160, 3840, 9, device).float()
+    motion_check(m4, f"3840x2160 {run + 1} frames")
+    del m4
     r1 = smooth_frames(torch, 2, 2160, 3840, 5, device)
     d1 = distort(torch, r1, 6).float()
     r1 = r1.float()
@@ -530,8 +567,9 @@ def work(name, n, h, w, m=0):
         return ((2 * p + m * h * w) * 4 + 2 * b2 * 4 + n * 2 * 4 + (m - 1) * 8,
                 p * (20 * 17 + 3 + 26) + dec9 + m * h * w * blur5
                 + (m - 1) * h * w * 3)
-    if name == "log2_table_audit":      # 32768 mantissas x 2 lookups
-        return 32768 * 4 + 65536 * 4, 65536 * 12
+    if name == "log2_table_audit":      # 32768 mantissas x 2 lookups and compares:
+        # the table and the expected values read once, one int written
+        return 32768 * 4 + 65536 * 4 + 4, 65536 * 14
     if name in ("adm_int_level", "adm_level"):  # level 0: DWT of 2 planes + pooling
         return 2 * p * 4 + 2 * b2 * 4 + n * 6 * 8, 2 * b2 * 96 + b2 * 110
     if name == "ssim_sse_plane":
@@ -585,9 +623,10 @@ def phase_times(torch, device, results, ref, dist, card, profile_dir=None):
                                lambda: vif_int_scale_plain(r, d, exact=False, **kw),
                                "fast form, scale 0, 32 core frames + motion over 34, "
                                "1080p, uint8", work("vif_int_scale_fast", n, h, w, m=34)),
-        "log2_table_audit": (lambda: cuda_vif_int.log2_table_audit(device),
-                             lambda: cuda_vif_int._audit_plain(device),
-                             "32768 mantissas x 2", work("log2_table_audit", 0, 0, 0)),
+        "log2_table_audit": (lambda: cuda_vif_int._log2_audit_launch(device),
+                             lambda: cuda_vif_int._audit_mismatches_plain(device),
+                             "32768 mantissas x 2, the uncached launch, one int copied back",
+                             work("log2_table_audit", 0, 0, 0)),
         "adm_int_level": (lambda: cuda_adm_int.adm_int_level(ra, da, **akw),
                           lambda: adm_level_plain(ra, da, **akw),
                           "level 0, 32 frames, 1080p, int32 Q4 codes",
@@ -796,6 +835,8 @@ def phase_slice(torch, device, results, card, profile_dir=None):
     counts = first[2]
     expect_counts(counts, model, {k: None for k in (*INTEGER_KERNELS, "ssim_sse_plane")})
     expect_counts(counts, model, {k: 0 for k in (*FLOAT_KERNELS, *FAST_KERNELS)})
+    # The process's first integer clip audits the log2 lookup, once.
+    expect_counts(counts, model, {"log2_table_audit": 1})
     for k in (*INTEGER_KERNELS, "ssim_sse_plane"):
         results[k]["launches"] = counts[k]
     int_scores = exact.last_scores
@@ -893,7 +934,7 @@ def phase_slice(torch, device, results, card, profile_dir=None):
         distorted_name=dist_path))
     check_results(res, label, "vmaf_v0.6.1", n)
     log(f"[slice] {label}: launches on the in-memory path: {counts}")
-    expect_counts(counts, label, {"vif_int_scale": 12, "log2_table_audit": 1,
+    expect_counts(counts, label, {"vif_int_scale": 12, "log2_table_audit": 0,
                                   "adm_int_level": 12, "ssim_sse_plane": 9})
     expect_counts(counts, label, {k: 0 for k in (*FLOAT_KERNELS, *FAST_KERNELS)})
     got = mem.last_scores
@@ -948,13 +989,14 @@ def profile_run(torch, run, out_dir, card, label):
 
 
 SASS_KERNELS = ("vif_int_scale_kernel", "vif_scale_f32_kernel", "adm_int_level_kernel",
-                "adm_level_f32_kernel")
+                "adm_level_f32_kernel", "motion_sad_f32_kernel")
 
 
 def sass_report(build, out_dir):
     """cuobjdump -sass of the kernel library into ``out_dir``; prints each
-    VIF scale and ADM level kernel's instruction count, its most frequent
-    opcodes and the subroutines it calls (a 64-bit division would be one)."""
+    VIF scale, ADM level and motion SAD kernel's instruction count, its most
+    frequent opcodes and the subroutines it calls (a 64-bit division would
+    be one)."""
     import collections
     import re
 
@@ -1007,7 +1049,7 @@ def main(argv=None) -> int:
                     help="also profile one warm run of each slice; tables go to DIR")
     ap.add_argument("--sass", metavar="DIR", default=None,
                     help="also write the library's SASS to DIR and print the opcode "
-                         "counts of the VIF scale and ADM level kernels")
+                         "counts of the VIF scale, ADM level and motion SAD kernels")
     args = ap.parse_args(argv)
 
     import torch

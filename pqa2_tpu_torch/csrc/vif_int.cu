@@ -58,7 +58,11 @@
 //     int64 accumulator), summed in float64 per thread, per block in a
 //     fixed shuffle order, and across blocks by the fixed-order second pass
 //     (common.cuh:finish_partials_kernel), so a run gives the same bits
-//     every time.
+//     every time;
+//   * the audit (kernel 2) compares each lookup with the expected value on
+//     the card and adds each block's mismatch count with one integer
+//     atomic, so one int32 comes back; the wrapper caches a passed audit
+//     per device.
 #include "common.cuh"
 
 #include <math.h>
@@ -491,17 +495,33 @@ motion_sad_kernel(const u16* __restrict__ blur, int HW, i64* __restrict__ sad) {
 }
 
 // For every mantissa m in [2^15, 2^16): the lookup of m itself (shift 0)
-// and of a 37-bit value whose truncated mantissa is m (shift 21); -1 where
-// the shift is wrong.
-__global__ void log2_audit_kernel(const int* __restrict__ tab, int* __restrict__ out) {
+// and of a 37-bit value whose truncated mantissa is m (shift 21), compared
+// on the card with want[i] and want[32768 + i] (golden/log2lut.py's
+// values, uploaded apart from the table the lookup reads); a wrong shift
+// is a mismatch too. Each block counts its mismatches and adds them to
+// *bad with one integer atomic: exact in any order.
+__global__ void __launch_bounds__(kThreads)
+log2_audit_kernel(const int* __restrict__ tab, const int* __restrict__ want,
+                  int* __restrict__ bad) {
+  __shared__ int red[kThreads / 32];
   const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= 32768) return;
-  const u64 m = 32768ull + i;
-  int k;
-  int v = q11_log2(m, tab, &k);
-  out[i] = k == 0 ? v : -1;
-  v = q11_log2((m << 21) | (m & 0x1FFFFFull), tab, &k);
-  out[32768 + i] = k == 21 ? v : -1;
+  int miss = 0;
+  if (i < 32768) {
+    const u64 m = 32768ull + i;
+    int k;
+    int v = q11_log2(m, tab, &k);
+    miss += k != 0 || v != __ldg(want + i);
+    v = q11_log2((m << 21) | (m & 0x1FFFFFull), tab, &k);
+    miss += k != 21 || v != __ldg(want + 32768 + i);
+  }
+  miss = __reduce_add_sync(0xffffffffu, miss);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = miss;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int s = 0;
+    for (int w = 0; w < kThreads / 32; ++w) s += red[w];
+    if (s != 0) atomicAdd(bad, s);
+  }
 }
 
 Taps make_taps(const int* f, int k, const int* fn, int kn, const int* fm) {
@@ -640,9 +660,10 @@ int pqa2_motion_sad(const unsigned short* blur, int m, int h, int w, long long* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// out (2 * 32768,) int32.
-int pqa2_log2_audit(const int* tab, int* out, cudaStream_t stream) {
-  log2_audit_kernel<<<32768 / kThreads, kThreads, 0, stream>>>(tab, out);
+// tab: the lookup's table (32768,) int32; want: the expected values (2 *
+// 32768,) int32; bad: one int32, zeroed by the caller, the mismatch count.
+int pqa2_log2_audit(const int* tab, const int* want, int* bad, cudaStream_t stream) {
+  log2_audit_kernel<<<32768 / kThreads, kThreads, 0, stream>>>(tab, want, bad);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,6 +6,13 @@ mean |blur5(f[n]) - blur5(f[n-1])|, 0 at n = 0. The float VIF wrapper
 (``ops/cuda_vif.py``) launches it on its scale-0 call, where the TPU fused
 the same term into ``vif_scale_pallas``.
 
+Design (``csrc/motion.cu``): a block owns a 128x32 output tile and walks a
+run of at most :data:`RUN` consecutive frames, keeping the previous frame's
+blurred pixels in registers, so each frame is read and blurred once per run
+(plus once as the frame before the next run); the next frame's tile is
+copied into shared memory while this one is blurred. A second launch adds
+the per-tile partials in a fixed order and divides by H*W.
+
 The wrapper computes with the plain version (``ops/motion.py``) only for
 CPU tensors; for CUDA tensors it launches the kernel or raises.
 ``motion_sad.launches`` counts kernel launches.
@@ -20,12 +27,17 @@ import torch
 
 from pqa2_tpu_torch import _build
 from pqa2_tpu_torch.golden.filters import motion_filter
-from pqa2_tpu_torch.ops.cuda_vif_int import _check_device, _taps
+from pqa2_tpu_torch.ops.cuda_vif_int import _check_device, host_taps
 from pqa2_tpu_torch.ops.motion import motion_sad_plain
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SAD_ARGS = [_P, _I, _I, _I, _P, _P, _P, _P]
+_SAD_ARGS = [_P, _I, _I, _I, _P, _I, _P, _P, _P]
+
+#: The most consecutive frames one block walks; the frames split evenly
+#: into ceil(N / RUN) runs (a 34-frame chunk: 12, 11 and 11 frames, 3 x 510
+#: blocks at 1080p).
+RUN = 16
 
 
 def motion_sad(frames: torch.Tensor) -> torch.Tensor:
@@ -40,12 +52,13 @@ def motion_sad(frames: torch.Tensor) -> torch.Tensor:
     if n < 1 or h <= 2 or w <= 2:
         raise ValueError(f"frames {tuple(frames.shape)}: need N >= 1 and H, W > 2")
     with torch.cuda.device(device):
-        blocks = _build.function("pqa2_motion_f32_blocks", [_I, _I], device)(h, w)
-        part = torch.empty((n, blocks), dtype=torch.float64, device=device)
+        tiles = _build.function("pqa2_motion_f32_tiles", [_I, _I], device)(h, w)
+        part = torch.empty((n, tiles), dtype=torch.float64, device=device)
         sad = torch.empty((n,), dtype=torch.float32, device=device)
         _build.launch("pqa2_motion_sad_f32", _SAD_ARGS, _build.ptr(frames), n, h, w,
-                      _build.ptr(_taps(device, "motion", motion_filter(), np.float32)),
-                      _build.ptr(part), _build.ptr(sad), _build.stream(device))
+                      host_taps("motion_f32", np.asarray(motion_filter(), np.float32),
+                                ctypes.c_float),
+                      RUN, _build.ptr(part), _build.ptr(sad), _build.stream(device))
     motion_sad.launches += 1
     return sad
 

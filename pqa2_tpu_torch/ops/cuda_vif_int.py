@@ -15,7 +15,9 @@ Counterpart of ``pqa2_tpu/ops/pallas_vif_int.py``:
   * :func:`log2_table_audit` replaces ``log2_direct_exceptions``
     (pallas_call at :152) — on Hopper the statistic reads the table, so
     the audit checks the device lookup against ``golden/log2lut.py`` over
-    all 32768 mantissas.
+    all 32768 mantissas. The kernel compares on the card and counts the
+    mismatches (one int32 comes back); a passed audit is cached per device,
+    so the first integer clip of a process audits and later ones do not.
 
 Each wrapper computes with its plain version (``ops/vif_int.py``) only for
 CPU tensors; for CUDA tensors it launches the kernel or raises. ``launches``
@@ -64,19 +66,12 @@ _VIF_ARGS = [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, ctypes.c_double,
              ctypes.c_double, ctypes.c_longlong, _I, _P, _P, _P, _P, _P, _P, _I, _P]
 _BLUR_ARGS = [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]
 _SAD_ARGS = [_P, _I, _I, _I, _P, _P]
-_AUDIT_ARGS = [_P, _P, _P]
+_AUDIT_ARGS = [_P, _P, _P, _P]
 
-_TAPS = {}
 _HOST_TAPS = {}
-
-
-def _taps(device: torch.device, key, values, dtype=np.int32) -> torch.Tensor:
-    """A filter table from pqa2_tpu_torch.golden (Q16 int32, or f32 for the
-    float kernels), uploaded once per device."""
-    k = (str(device), key, np.dtype(dtype).name)
-    if k not in _TAPS:
-        _TAPS[k] = torch.as_tensor(np.asarray(values, dtype=dtype), device=device)
-    return _TAPS[k]
+#: Expected audit values per device, and the devices whose audit passed.
+_EXPECTED = {}
+_AUDITED = set()
 
 
 def host_taps(key, values, ctype=ctypes.c_int):
@@ -251,6 +246,18 @@ def vif_motion_features_int(
                        motion_ref=codes, exact=exact)
 
 
+def _log2_expected(device) -> torch.Tensor:
+    """What the audit must find: ``golden.log2lut.log2_table()[32768:65536]``
+    for shift 0 and again for shift 21, (65536,) int32 on ``device``.
+    Uploaded once per device, apart from the table the lookup reads
+    (:func:`log2_table_device`), so a corrupted table upload cannot pass."""
+    key = str(torch.device(device))
+    if key not in _EXPECTED:
+        want = np.tile(log2_table()[32768:65536].astype(np.int32), 2)
+        _EXPECTED[key] = torch.as_tensor(want, device=device)
+    return _EXPECTED[key]
+
+
 def _audit_plain(device: torch.device) -> torch.Tensor:
     m = torch.arange(32768, 65536, dtype=torch.int64, device=device)
     direct, k0 = q11_log2_plain(m)
@@ -260,34 +267,60 @@ def _audit_plain(device: torch.device) -> torch.Tensor:
                       torch.where(k21 == 21, shifted, bad)]).to(torch.int32)
 
 
+def _audit_mismatches_plain(device, want: Optional[torch.Tensor] = None) -> int:
+    """The plain audit: the lookups of :func:`_audit_plain` that differ from
+    ``want`` (default :func:`_log2_expected`)."""
+    want = _log2_expected(device) if want is None else want
+    return int(torch.count_nonzero(_audit_plain(torch.device(device)) != want))
+
+
+def _log2_audit_launch(device, want: Optional[torch.Tensor] = None) -> int:
+    """One launch of the audit kernel on a CUDA ``device``, never cached: it
+    compares every lookup with ``want`` (default :func:`_log2_expected`)
+    on the card and returns the mismatch count, the one int32 copied back.
+    Counted in ``log2_table_audit.launches``."""
+    device = require_cuda(device)
+    want = _log2_expected(device) if want is None else want
+    _build.check_tensor(want, "want", torch.int32, 1, device)
+    if want.numel() != 2 * 32768:
+        raise ValueError(f"want has {want.numel()} values, expected {2 * 32768}")
+    with torch.cuda.device(device):
+        bad = torch.zeros(1, dtype=torch.int32, device=device)
+        _build.launch("pqa2_log2_audit", _AUDIT_ARGS,
+                      _build.ptr(log2_table_device(device)), _build.ptr(want),
+                      _build.ptr(bad), _build.stream(device))
+    log2_table_audit.launches += 1
+    return int(bad.item())
+
+
 def log2_table_audit(device) -> int:
-    """Exhaustive audit of the statistic's Q11 log2 lookup on ``device``.
+    """Exhaustive audit of the statistic's Q11 log2 lookup on ``device``,
+    once per device: a passed audit is cached, as the JAX package caches
+    ``log2_direct_exceptions`` per backend.
 
     For every mantissa m in [2^15, 2^16) the device evaluates the lookup
     the VIF kernel uses, for m itself and for a 37-bit value whose
     truncated mantissa is m (normalisation shift 21); both must equal
-    ``golden.log2lut.log2_table()[m]``. Returns the mismatch count (0) or
-    raises RuntimeError. CPU audits the plain lookup."""
+    ``golden.log2lut.log2_table()[m]``. The card compares and counts
+    (:func:`_log2_audit_launch`); the CPU audits the plain lookup. Returns
+    0, or raises RuntimeError on any mismatch, at every call until an
+    audit passes."""
     device = torch.device(device)
-    if device.type == "cpu":
-        got = _audit_plain(device)
-    else:
-        if device.type != "cuda":
-            raise ValueError(f"log2 audit needs a CUDA or CPU device, got {device}")
+    if device.type == "cuda":
         device = require_cuda(device)
-        with torch.cuda.device(device):
-            got = torch.empty(2 * 32768, dtype=torch.int32, device=device)
-            _build.launch("pqa2_log2_audit", _AUDIT_ARGS,
-                          _build.ptr(log2_table_device(device)), _build.ptr(got),
-                          _build.stream(device))
-        log2_table_audit.launches += 1
-    want = np.tile(log2_table()[32768:65536].astype(np.int32), 2)
-    mismatches = int(np.count_nonzero(got.cpu().numpy() != want))
+    elif device.type != "cpu":
+        raise ValueError(f"log2 audit needs a CUDA or CPU device, got {device}")
+    key = str(device)
+    if key in _AUDITED:
+        return 0
+    mismatches = (_log2_audit_launch(device) if device.type == "cuda"
+                  else _audit_mismatches_plain(device))
     if mismatches:
         raise RuntimeError(
             f"Q11 log2 lookup on {device} disagrees with golden/log2lut.py at "
             f"{mismatches} of {2 * 32768} audited values")
-    return mismatches
+    _AUDITED.add(key)
+    return 0
 
 
 log2_table_audit.launches = 0

@@ -64,8 +64,9 @@ def model_feature_params(model, precision: Optional[str] = None, *,
 
     For ``"integer"`` this also audits the exact statistic's Q11 log2
     lookup on ``device`` (:func:`log2_table_audit`, 32768 mantissas),
-    where the JAX package runs ``log2_direct_exceptions``; it runs at
-    every call, i.e. once per scored clip, and raises on a mismatch.
+    where the JAX package runs ``log2_direct_exceptions``; a passed audit
+    is cached per device, so it runs for the first integer clip of a
+    process, and a mismatch raises at every call.
     ``"integer_fast"`` reads no table, so it runs no audit (as the JAX
     package, pqa2_tpu/pipeline/features.py:251-258)."""
     if hasattr(model, "models"):  # BootstrapModel: sub-models share options

@@ -477,6 +477,59 @@ def test_log2_audit_plain_path():
     assert got.shape == (65536,) and got.min() == 30720 and got.max() == 32768
 
 
+def test_log2_audit_caches_a_passed_audit(monkeypatch):
+    """A passed audit is cached per device: the second call audits nothing
+    and returns 0 (kernel 2 launches once per device, not once per clip)."""
+    from pqa2_tpu_torch.ops import cuda_vif_int
+
+    monkeypatch.setattr(cuda_vif_int, "_AUDITED", set())
+    launches = cuda_vif_int.log2_table_audit.launches
+    assert cuda_vif_int.log2_table_audit("cpu") == 0
+    assert cuda_vif_int._AUDITED == {"cpu"}
+
+    def audited_again(device):
+        raise AssertionError("a cached audit ran again")
+
+    monkeypatch.setattr(cuda_vif_int, "_audit_plain", audited_again)
+    assert cuda_vif_int.log2_table_audit(torch.device("cpu")) == 0
+    assert cuda_vif_int.log2_table_audit.launches == launches
+
+
+def test_log2_audit_mismatch_raises_every_time(monkeypatch):
+    """One wrong expected value is one mismatch: the audit raises at every
+    call and caches nothing."""
+    from pqa2_tpu_torch.ops import cuda_vif_int
+
+    monkeypatch.setattr(cuda_vif_int, "_AUDITED", set())
+    want = cuda_vif_int._log2_expected("cpu").clone()
+    want[32768 + 12345] += 1
+    assert cuda_vif_int._audit_mismatches_plain("cpu", want) == 1
+    monkeypatch.setattr(cuda_vif_int, "_log2_expected", lambda device: want)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match=r"at 1 of 65536 audited values"):
+            cuda_vif_int.log2_table_audit("cpu")
+    assert not cuda_vif_int._AUDITED
+
+
+def test_motion_sad_plain_matches_pallas_kernel():
+    """Kernel 7's plain version against the JAX kernel itself in interpret
+    mode, at 1, 2 and 9 frames of a 40x56 plane: frame 0 exactly 0 on both,
+    the rest within 1e-5 relative (f32 sums in another order; XLA may also
+    contract the blur's multiply-adds on the CPU, Queue 3 F2)."""
+    from pqa2_tpu.ops.pallas_motion import motion_sad_pallas
+    from pqa2_tpu_torch.ops.motion import motion_sad_plain
+
+    ref, _ = _smooth_pair(14, 9, 40, 56)
+    ref = np.stack([np.roll(f, 3 * t, axis=1) for t, f in enumerate(ref)]).astype(np.float32)
+    for n in (1, 2, 9):
+        got = motion_sad_plain(torch.from_numpy(ref[:n])).numpy()
+        want = np.asarray(motion_sad_pallas(jnp.asarray(ref[:n]), interpret=True))
+        assert got.shape == want.shape == (n,)
+        assert got[0] == 0.0 and want[0] == 0.0
+        assert (got[1:] > 0).all()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+
+
 def test_wrappers_use_plain_versions_on_cpu():
     from pqa2_tpu_torch.ops import cuda_adm_int, cuda_ssim, cuda_vif_int
     from pqa2_tpu_torch.ops.adm_int import adm_level_plain
@@ -890,10 +943,20 @@ def test_kernel_vif_scale_edges(cuda_device, depth):
 
 
 @pytest.mark.cuda
-def test_kernel_log2_audit(cuda_device):
-    from pqa2_tpu_torch.ops.cuda_vif_int import log2_table_audit
+def test_kernel_log2_audit(cuda_device, monkeypatch):
+    """Kernel 2 compares on the card: 0 mismatches, exactly 1 against one
+    wrong expected value; the public call launches once per device."""
+    from pqa2_tpu_torch.ops import cuda_vif_int
 
-    assert log2_table_audit(cuda_device) == 0
+    assert cuda_vif_int._log2_audit_launch(cuda_device) == 0
+    want = cuda_vif_int._log2_expected(cuda_device).clone()
+    want[32768 + 12345] += 1
+    assert cuda_vif_int._log2_audit_launch(cuda_device, want) == 1
+    monkeypatch.setattr(cuda_vif_int, "_AUDITED", set())
+    launches = cuda_vif_int.log2_table_audit.launches
+    assert cuda_vif_int.log2_table_audit(cuda_device) == 0
+    assert cuda_vif_int.log2_table_audit(cuda_device) == 0
+    assert cuda_vif_int.log2_table_audit.launches == launches + 1
 
 
 def _adm_int_levels_match(r, d, drop, gain):
@@ -1066,12 +1129,21 @@ def test_kernel_adm_level_edges(cuda_device, gain):
 
 @pytest.mark.cuda
 def test_kernel_motion_sad_matches_plain(cuda_device):
-    """Kernel 7: frame 0 exactly 0, the rest within 1e-5 relative, repeatable."""
-    from pqa2_tpu_torch.ops.cuda_motion import motion_sad
+    """Kernel 7: frame 0 exactly 0, the rest within 1e-5 relative, repeatable
+    bits; on an odd plane (4-byte copies), at 1 and 2 frames, at RUN + 1
+    frames (a run split across blocks), 1080p (34 frames) and 3840x2160."""
+    from pqa2_tpu_torch.ops.cuda_motion import RUN, motion_sad
     from pqa2_tpu_torch.ops.motion import motion_sad_plain
 
-    ref, _ = _float_pair(13, 5, 135, 241, cuda_device)
-    ref = torch.stack([torch.roll(f, 2 * i, dims=1) for i, f in enumerate(ref)])
-    got = motion_sad(ref)
-    assert got[0].item() == 0.0 and torch.equal(got, motion_sad(ref))
-    torch.testing.assert_close(got, motion_sad_plain(ref), rtol=1e-5, atol=0)
+    def moving(seed, n, h, w):
+        ref, _ = _float_pair(seed, n, h, w, cuda_device)
+        return torch.stack([torch.roll(f, 2 * i, dims=1) for i, f in enumerate(ref)])
+
+    cases = [moving(13, 5, 135, 241), moving(15, 2 * RUN + 3, 72, 96)]
+    big = moving(16, RUN + 1, 1080, 1920)
+    cases += [big[:1], big[:2], big, torch.cat([big, big[:RUN + 1]]),
+              moving(17, 3, 2160, 3840)]
+    for ref in cases:
+        got = motion_sad(ref)
+        assert got[0].item() == 0.0 and torch.equal(got, motion_sad(ref))
+        torch.testing.assert_close(got, motion_sad_plain(ref), rtol=1e-5, atol=0)
