@@ -57,13 +57,32 @@ any failure raises and the exit code is 1):
      of the integer run's. Then the in-memory path: the same pair decoded
      once, through ``VMAFAnalyzer.analyze_frames`` with ``vmaf_v0.6.1``
      and PSNR+SSIM, must give the integer run's features, VMAF, PSNR and
-     SSIM in every bit, with no log2 audit (the process has passed one);
+     SSIM in every bit, with no log2 audit (the process has passed one).
+     Then the decode-once align-and-score workflow
+     (``run_combined_workflow(device="cuda")``) on a 1920x1080 pair: a
+     150-frame reference and a 350-frame capture (dark lead-in, white
+     bookends around two distorted loops of the reference, a dark tail).
+     Its alignment dict must equal ``align_bookend_clips(device="cpu")``'s
+     on the same decoded luma, its aligned window must pair each captured
+     frame with the reference frame it was made from, its per-frame values
+     must equal ``analyze_frames``' on that window in every bit, with the
+     launches of the in-memory path; the two-pass path
+     (``max_in_memory_bytes=0``) must give the same alignment and the same
+     bits; the card's statistics pass must give the CPU's histograms and
+     means, stds and thumbnails within 1e-5; and on a capture rolled by
+     (2, 6) (its loop the reference with noise only), motion compensation
+     must estimate (-2, -6) on every frame on the card and the CPU alike.
+     Its wall seconds (a first run and two warm runs), the statistics
+     pass's ms per 64-frame chunk, the phase correlation's ms per 32 frames
+     and the shifts it estimates on the blurred loops rolled by (2, 6) are
+     printed;
   4. CUDA-event times of each kernel against its plain version at 1080p,
      each kernel's bound (the least time the card could take for the same
      work), and each slice's frames per second: its first run and three
      warm runs. With --profile, torch.profiler over one more warm run of
-     each slice and over three scale-0 or level-0 calls of each VIF and
-     ADM kernel (kernel 1f too).
+     each slice and of the workflow (device busy time, idle share, and the
+     count and bytes of host-to-device copies) and over three scale-0 or
+     level-0 calls of each VIF and ADM kernel (kernel 1f too).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX and
@@ -950,6 +969,301 @@ def phase_slice(torch, device, results, card, profile_dir=None):
         f"[{card}]")
 
 
+WORKFLOW_REF_FRAMES = 150  # 5 s at 30 fps
+WORKFLOW_TOL = 1e-5       # card vs CPU statistics: means, stds, thumbnails
+
+
+def workflow_content(torch, n, h, w, device):
+    """(n, h, w) uint8 reference luma: a new smooth field every 3 frames,
+    moving within it, so the thumbnails' cross-correlation resolves a shift
+    of one frame."""
+    return torch.cat([smooth_frames(torch, 3, h, w, 100 + g, device)
+                      for g in range(-(-n // 3))])[:n]
+
+
+def write_bookend_capture(torch, path, loops, h, w, shift=None):
+    """Capture y4m: 10 dark lead-in frames, then for each loop in ``loops``
+    a 10-frame white bookend (luma 235) and the loop's frames, a closing
+    bookend and a 10-frame dark tail. With ``shift`` (dy, dx) the loops'
+    luma is rolled by it and their chroma by half of it. Returns, for each
+    captured frame, the index of the loop frame it was made from (-1 for
+    the rest)."""
+    import numpy as np
+
+    from pqa2_tpu_torch.io.y4m import Y4MHeader, Y4MWriter
+
+    ch, cw = h // 2, w // 2
+    dark = {"y": np.full((h, w), 16, np.uint8), "u": np.full((ch, cw), 128, np.uint8),
+            "v": np.full((ch, cw), 128, np.uint8)}
+    white = dict(dark, y=np.full((h, w), 235, np.uint8))
+    source = []
+    with Y4MWriter(path, Y4MHeader(width=w, height=h, fps_num=30, fps_den=1,
+                                   colorspace="C420mpeg2")) as wr:
+        def put(frame, src):
+            wr.write_frame(frame)
+            source.append(src)
+
+        for _ in range(10):
+            put(dark, -1)
+        for loop in loops:
+            for _ in range(10):
+                put(white, -1)
+            c = torch.nn.functional.avg_pool2d(loop.float()[:, None], 2)[:, 0].round()
+            c = c.to(torch.uint8)
+            y = loop
+            if shift is not None:
+                y = torch.roll(y, shift, dims=(1, 2))
+                c = torch.roll(c, (shift[0] // 2, shift[1] // 2), dims=(1, 2))
+            y, c = y.cpu().numpy(), c.cpu().numpy()
+            for i in range(len(y)):
+                put({"y": y[i], "u": c[i], "v": 255 - c[i]}, i)
+        for _ in range(10):
+            put(white, -1)
+        for _ in range(10):
+            put(dark, -1)
+    return np.array(source)
+
+
+def decode(path):
+    """Every frame of a video file as planar dicts (VideoReader)."""
+    from pqa2_tpu_torch.io.video import VideoReader
+
+    r = VideoReader(path)
+    try:
+        return list(r)
+    finally:
+        r.close()
+
+
+def alignment_of(result, motion_compensated=False):
+    """The workflow's alignment dict (aligned paths aside) for an
+    ``AlignmentResult``, as run_combined_workflow builds it."""
+    import dataclasses
+
+    return {"alignment_method": result.alignment_method,
+            "offset_frames": result.offset_frames,
+            "offset_seconds": result.offset_seconds,
+            "confidence": result.confidence,
+            "bookend_info": {
+                "first_bookend": dataclasses.asdict(result.bookends[0]),
+                "last_bookend": dataclasses.asdict(result.bookends[-1]),
+                "content_duration": result.content_duration,
+                "motion_compensated": motion_compensated},
+            "ref_range": list(result.ref_range), "cap_range": list(result.cap_range),
+            "is_fallback": result.is_fallback}
+
+
+def without_paths(alignment):
+    return {k: v for k, v in alignment.items()
+            if k not in ("aligned_reference", "aligned_captured")}
+
+
+def per_frame(scores):
+    """name -> per-frame array of a ClipScores: features, VMAF, PSNR, SSIM."""
+    out = {f"feature {k}": v for k, v in scores.features.items()}
+    out["vmaf"] = scores.vmaf
+    out.update(scores.psnr)
+    out.update(scores.ssim)
+    return out
+
+
+def check_same_bits(label, got, want):
+    import numpy as np
+
+    if got.keys() != want.keys():
+        raise AssertionError(f"{label}: arrays {sorted(got)} != {sorted(want)}")
+    for k in want:
+        if got[k].shape != want[k].shape or not np.array_equal(got[k], want[k]):
+            raise AssertionError(f"{label}: {k} differs")
+    return len(want)
+
+
+def phase_workflow(torch, device, card, profile_dir=None, h=1080, w=1920,
+                   n_ref=WORKFLOW_REF_FRAMES):
+    """Phase 3, the decode-once workflow: run_combined_workflow on the card
+    against the CPU's alignment, analyze_frames on the chosen window and the
+    two-pass path; the statistics pass and the phase correlation against
+    the CPU's; motion compensation on a rolled capture."""
+    import numpy as np
+
+    from pqa2_tpu_torch.align.motioncomp import _phase_corr_surface, estimate_shifts
+    from pqa2_tpu_torch.align.stats import _stats_thumb_chunk, stats_and_thumbs
+    from pqa2_tpu_torch.align.temporal import align_bookend_clips
+    from pqa2_tpu_torch.app.bookend_aligner import BookendAligner
+    from pqa2_tpu_torch.app.options_manager import OptionsManager
+    from pqa2_tpu_torch.app.vmaf_analyzer import VMAFAnalyzer
+    from pqa2_tpu_torch.app.workflow import run_combined_workflow
+    from pqa2_tpu_torch.io.y4m import write_y4m
+    from pqa2_tpu_torch.pipeline.scoring import upload
+
+    wdir = os.path.join(WORK_DIR, "workflow")
+    os.makedirs(wdir, exist_ok=True)
+    ref_path = os.path.join(wdir, "ref.y4m")
+    cap_path = os.path.join(wdir, "cap.y4m")
+    mc_path = os.path.join(wdir, "cap_rolled.y4m")
+    ref = workflow_content(torch, n_ref, h, w, device)
+    loop = distort(torch, ref, 21, radius=3, noise=16)
+    c = torch.nn.functional.avg_pool2d(ref.float()[:, None], 2)[:, 0].round().to(torch.uint8)
+    ry, rc = ref.cpu().numpy(), c.cpu().numpy()
+    write_y4m(ref_path, [{"y": ry[i], "u": rc[i], "v": 255 - rc[i]} for i in range(n_ref)])
+    source = write_bookend_capture(torch, cap_path, (loop, loop), h, w)
+    # The rolled capture: a capture chain's constant misregistration, the
+    # reference's content with noise only (tests/test_app.py's case).
+    mc_source = write_bookend_capture(torch, mc_path, (distort(torch, ref, 22, 0, 8),), h, w,
+                                      shift=(2, 6))
+    del c
+    log(f"[workflow] wrote a {n_ref}-frame {w}x{h} reference and a {len(source)}-frame "
+        f"capture (two loops, each a 7x7 box blur plus noise in [-16, 16]); and a "
+        f"{len(mc_source)}-frame one with one loop, noise in [-8, 8], rolled by (2, 6)")
+
+    def options(name, motion_compensation):
+        om = OptionsManager(settings_file=os.path.join(wdir, f"{name}.json"),
+                            save_debounce_s=0)
+        om.update_setting("bookend", "frame_offset", 0)
+        om.update_setting("bookend", "motion_compensation", motion_compensation)
+        return om
+
+    om = options("settings", False)
+
+    def workflow(cap, om=om, **kw):
+        a = VMAFAnalyzer(device=device)
+        a.set_output_directory(os.path.join(wdir, "out"))
+        out = run_combined_workflow(ref_path, cap, options_manager=om,
+                                    aligner=BookendAligner(om, device=device), analyzer=a,
+                                    device=device, **kw)
+        if out is None:
+            raise AssertionError(f"run_combined_workflow({cap}, {kw}) failed")
+        return out, a.last_scores
+
+    (res, scores), secs, counts = counted(torch, lambda: workflow(cap_path))
+    log(f"[workflow] decode once, {len(source)} + {n_ref} frames: launches {counts}")
+
+    # 1. The alignment the CPU's plain statistics give on the same decoded luma.
+    ref_planes, cap_planes = decode(ref_path), decode(cap_path)
+    ref_luma = np.stack([f["y"] for f in ref_planes])
+    cap_luma = np.stack([f["y"] for f in cap_planes])
+    cpu = align_bookend_clips(ref_luma, cap_luma, fps=30.0,
+                              config=BookendAligner(om, device="cpu")._config(), device="cpu")
+    if without_paths(res["alignment"]) != alignment_of(cpu):
+        raise AssertionError(f"workflow alignment {res['alignment']} != the CPU's "
+                             f"{alignment_of(cpu)}")
+    r0, r1 = res["alignment"]["ref_range"]
+    c0, c1 = res["alignment"]["cap_range"]
+    log(f"[workflow] alignment equal to align_bookend_clips(device='cpu') in every field: "
+        f"ref {r0}..{r1}, capture {c0}..{c1}, confidence {cpu.confidence:.6f}, "
+        f"bookends {[(b.start_frame, b.end_frame) for b in cpu.bookends]}")
+    # 2. Each captured frame of the window against the frame it was made from.
+    if not np.array_equal(source[c0:c1], np.arange(r0, r1)):
+        raise AssertionError(f"the window pairs capture {c0}..{c1} (made from reference "
+                             f"frames {source[c0]}..{source[c1 - 1]}) with reference "
+                             f"{r0}..{r1}")
+    log(f"[workflow] every captured frame of the window is paired with the reference "
+        f"frame it was made from ({c1 - c0} frames)")
+    # 3. The same bits as analyze_frames on that window, decoded once more.
+    mem = VMAFAnalyzer(device=device)
+    mem.set_output_directory(os.path.join(wdir, "out_frames"))
+    if mem.analyze_frames(ref_planes[r0:r1], cap_planes[c0:c1], model="vmaf_v0.6.1") is None:
+        raise AssertionError("analyze_frames on the aligned window failed")
+    k = check_same_bits("workflow vs analyze_frames", per_frame(scores),
+                        per_frame(mem.last_scores))
+    n = c1 - c0
+    vmaf = scores.vmaf
+    log(f"[workflow] {k} per-frame arrays (features, VMAF, PSNR, SSIM) equal to "
+        f"analyze_frames' on the window in every bit; vmaf {res['analysis']['vmaf_score']:.4f} "
+        f"(per frame {vmaf.min():.3f}..{vmaf.max():.3f}), psnr "
+        f"{res['analysis']['psnr_score']:.4f} dB, ssim {res['analysis']['ssim_score']:.6f}")
+    if not (np.all(np.isfinite(vmaf)) and 5.0 < vmaf.min() and vmaf.max() < 99.0):
+        raise AssertionError(f"workflow VMAF {vmaf.min()}..{vmaf.max()}")
+    # 4. The launches of the in-memory path: 4 VIF scales and 4 ADM levels,
+    # 3 SSIM planes per 32-frame chunk, no audit (the process passed one).
+    chunks = -(-n // 32)
+    expect_counts(counts, "workflow", {"vif_int_scale": 4 * chunks, "log2_table_audit": 0,
+                                       "adm_int_level": 4 * chunks,
+                                       "ssim_sse_plane": 3 * chunks})
+    expect_counts(counts, "workflow", {k: 0 for k in (*FLOAT_KERNELS, *FAST_KERNELS)})
+    del ref_planes, cap_planes
+    warm = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        again, again_scores = workflow(cap_path)
+        warm.append(time.perf_counter() - t0)
+        if again["alignment"] != res["alignment"] or \
+                not np.array_equal(again_scores.vmaf, scores.vmaf):
+            raise AssertionError("a warm workflow run differs from the first")
+    log(f"[times] workflow {w}x{h} ({len(source)}-frame capture, {n_ref}-frame reference, "
+        f"{n} frames scored with PSNR+SSIM): first run {secs:.3f} s, warm runs "
+        + ", ".join(f"{t:.3f}" for t in warm) + f" s [{card}]")
+    if profile_dir:
+        profile_run(torch, lambda: workflow(cap_path), profile_dir, card, "workflow_warm_run")
+
+    # 5. The two-pass path: streamed alignment, trims, the streaming analyzer.
+    t0 = time.perf_counter()
+    two, two_scores = workflow(cap_path, max_in_memory_bytes=0)
+    two_secs = time.perf_counter() - t0
+    if without_paths(two["alignment"]) != without_paths(res["alignment"]):
+        raise AssertionError(f"two-pass alignment {two['alignment']} != {res['alignment']}")
+    k = check_same_bits("two-pass vs decode once", per_frame(two_scores), per_frame(scores))
+    log(f"[workflow] two-pass (max_in_memory_bytes=0): the same alignment and {k} per-frame "
+        f"arrays equal in every bit; {two_secs:.3f} s [{card}]")
+
+    # 6. The statistics pass on the card against the CPU's, on the capture.
+    cap_dev = upload(cap_luma, device)
+    stats, thumbs = stats_and_thumbs(cap_dev, device=device)
+    cpu_stats, cpu_thumbs = stats_and_thumbs(cap_luma, device="cpu")
+    if not np.array_equal(stats["hist"], cpu_stats["hist"]):
+        raise AssertionError("card histograms != the CPU's")
+    worst = {}
+    for name, a, b in (("mean", stats["mean"], cpu_stats["mean"]),
+                       ("std", stats["std"], cpu_stats["std"]), ("thumbnails", thumbs, cpu_thumbs)):
+        rel = float(np.max(np.abs(a.astype(np.float64) - b) / np.maximum(np.abs(b), 1e-30)))
+        if not rel <= WORKFLOW_TOL:
+            raise AssertionError(f"card {name} differ from the CPU's by {rel:.3e} relative")
+        worst[name] = f"{rel:.3e}" + (" (equal)" if np.array_equal(a, b) else "")
+    log(f"[workflow] statistics pass on the card vs the CPU over {len(cap_luma)} frames: "
+        f"histograms equal; largest relative difference {worst}")
+    chunk = cap_dev[:64]
+    stats_ms = time_call(torch, lambda: _stats_thumb_chunk(chunk), 10)
+    pair = (cap_dev[c0:c0 + 32], upload(ref_luma[:32], device))
+    corr_ms = time_call(torch, lambda: _phase_corr_surface(*pair).flatten(1).argmax(dim=1), 10)
+    log(f"[times] statistics pass {stats_ms:.3f} ms per 64-frame chunk of {w}x{h} uint8; "
+        f"phase correlation {corr_ms:.3f} ms per 32 frame pairs [{card}]")
+    del cap_dev, chunk, pair, cap_luma
+
+    # 7. Motion compensation on the rolled capture.
+    mc, mc_scores = workflow(mc_path, om=options("settings_mc", True))
+    info = mc["alignment"]
+    m0, m1 = info["cap_range"]
+    q0, q1 = info["ref_range"]
+    if not info["bookend_info"]["motion_compensated"]:
+        raise AssertionError("motion compensation was not reported")
+    if not np.array_equal(mc_source[m0:m1], np.arange(q0, q1)):
+        raise AssertionError(f"rolled capture: window {m0}..{m1} is not paired with "
+                             f"reference {q0}..{q1}")
+    mc_luma = np.stack([f["y"] for f in decode(mc_path)[m0:m1]])
+    ref_win = ref_luma[q0:q1]
+    card_shifts = estimate_shifts(upload(ref_win, device), upload(mc_luma, device),
+                                  device=device)
+    cpu_shifts = estimate_shifts(ref_win, mc_luma, device="cpu")
+    if not np.array_equal(card_shifts, cpu_shifts):
+        raise AssertionError("card shifts != the CPU's")
+    if not np.all(card_shifts == np.array([-2, -6])):
+        raise AssertionError(f"shifts {np.unique(card_shifts, axis=0)}, expected (-2, -6)")
+    log(f"[workflow] motion compensation: estimate_shifts (-2, -6) on all {m1 - m0} frames "
+        f"on the card and the CPU alike; the workflow reports motion_compensated: true, "
+        f"vmaf {mc['analysis']['vmaf_score']:.4f} (per frame {mc_scores.vmaf.min():.3f}.."
+        f"{mc_scores.vmaf.max():.3f})")
+    # Recorded, not checked: the same estimate on the blurred loops, rolled.
+    est = estimate_shifts(ref[q0:q1], torch.roll(loop[q0:q1], (2, 6), dims=(1, 2)),
+                          device=device)
+    other = np.any(est != np.array([-2, -6]), axis=1)
+    values, counts = np.unique(est, axis=0, return_counts=True)
+    log(f"[workflow] estimate_shifts on the 7x7-blurred loop rolled by (2, 6): "
+        f"{int(other.sum())} of {len(est)} frames give another shift than (-2, -6) "
+        f"(frames {np.flatnonzero(other).tolist()[:20]}); shifts and counts "
+        f"{[(tuple(v), int(k)) for v, k in zip(values.tolist(), counts)]}")
+    del ref, loop
+
+
 def profile_run(torch, run, out_dir, card, label):
     """torch.profiler over one call of ``run`` (a warm slice run, or one
     kernel call): device busy time against wall time, and the kernel table,
@@ -970,17 +1284,26 @@ def profile_run(torch, run, out_dir, card, label):
             busy_us[e.name] = busy_us.get(e.name, 0.0) + e.time_range.elapsed_us()
             count[e.name] = count.get(e.name, 0) + 1
     total = sum(busy_us.values()) / 1e3
+    trace = os.path.join(WORK_DIR, "trace.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = json.load(f)
+    os.remove(trace)
+    events = events.get("traceEvents", events) if isinstance(events, dict) else events
+    htod = [e.get("args", {}).get("bytes", 0) for e in events
+            if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
     averages = prof.key_averages()
     table = averages.table(sort_by="self_cuda_time_total", row_limit=40)
     host = averages.table(sort_by="self_cpu_time_total", row_limit=25)
     with open(os.path.join(out_dir, f"profile_{label}.txt"), "w") as f:
-        f.write(f"{card}\n{label}: wall {wall * 1e3:.3f} ms, device busy {total:.3f} ms\n\n")
+        f.write(f"{card}\n{label}: wall {wall * 1e3:.3f} ms, device busy {total:.3f} ms, "
+                f"{len(htod)} HtoD copies of {sum(htod)} bytes\n\n")
         for name, us in sorted(busy_us.items(), key=lambda kv: -kv[1]):
             f.write(f"{us / 1e3:10.3f} ms {count[name]:5d}x  {name}\n")
         f.write("\n" + table + "\n\nHost self time by operation:\n" + host)
     log(f"[profile] {label} under torch.profiler: wall {wall * 1e3:.3f} ms, "
-        f"device busy {total:.3f} ms ({100.0 * (1 - total / (wall * 1e3)):.1f} % idle) "
-        f"[{card}]")
+        f"device busy {total:.3f} ms ({100.0 * (1 - total / (wall * 1e3)):.1f} % idle), "
+        f"{len(htod)} HtoD copies of {sum(htod) / 1e6:.3f} MB [{card}]")
     for name, us in sorted(busy_us.items(), key=lambda kv: -kv[1])[:10]:
         log(f"[profile]   {us / 1e3:9.3f} ms {count[name]:4d}x  {name[:90]}")
     for e in sorted(averages, key=lambda e: -e.self_cpu_time_total)[:6]:
@@ -1084,6 +1407,7 @@ def main(argv=None) -> int:
                    "bound_ms": None, "bound_by": None, "library_ms": None}
                for k, (src, rep) in KERNELS.items()}
     phase_slice(torch, device, results, card, args.profile)
+    phase_workflow(torch, device, card, args.profile)
     torch.cuda.empty_cache()
     ref, dist = phase_kernels(torch, device, results)
     phase_times(torch, device, results, ref, dist, card, args.profile)

@@ -2,19 +2,27 @@
 
   python -m pqa2_tpu_torch.cli score REF DIST [--model M] [--out DIR]
                                     [--precision P] [--device cuda|cpu] ...
+  python -m pqa2_tpu_torch.cli align REF CAPTURE [--device cuda|cpu]
+  python -m pqa2_tpu_torch.cli full REF CAPTURE [--out DIR] [--model M]
+                                   [--device cuda|cpu]
   python -m pqa2_tpu_torch.cli probe VIDEO
   python -m pqa2_tpu_torch.cli models
 
 ``score`` prints one JSON line with the pooled scores and the JSON log's
 path; ``--device cpu`` runs the plain PyTorch versions instead of the
-kernels. ``probe`` prints a video's metadata, ``models`` the packaged
-models.
+kernels. ``align`` bookend-aligns a capture to its reference and writes the
+aligned .y4m pair next to the capture; ``full`` aligns, scores the aligned
+window (decoding each file once) and writes HTML and CSV reports, and a PDF
+where matplotlib is installed. ``probe`` prints a video's metadata,
+``models`` the packaged models.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
+import os
 import sys
 from typing import List, Optional
 
@@ -49,6 +57,50 @@ def cmd_score(args) -> int:
     return 0
 
 
+def cmd_align(args) -> int:
+    from pqa2_tpu_torch.app.bookend_aligner import BookendAligner
+
+    aligner = BookendAligner(device=args.device)
+    aligner.status_update.connect(lambda m: print(f"[align] {m}", file=sys.stderr))
+    aligner.error_occurred.connect(lambda m: print(f"[align] {m}", file=sys.stderr))
+    res = aligner.align_bookend_videos(args.reference, args.capture)
+    if res is None:
+        return 1
+    print(json.dumps({k: res[k] for k in (
+        "aligned_reference", "aligned_captured", "offset_frames",
+        "offset_seconds", "confidence", "is_fallback")}))
+    return 0
+
+
+def cmd_full(args) -> int:
+    """Align, score the aligned window and write the reports; each file is
+    decoded once (app/workflow.py)."""
+    from pqa2_tpu_torch.app.report_generator import ReportGenerator
+    from pqa2_tpu_torch.app.workflow import run_combined_workflow
+
+    out_dir = args.out or os.path.dirname(args.capture) or "."
+    combined = run_combined_workflow(
+        args.reference, args.capture, out_dir=out_dir, model=args.model,
+        device=args.device)
+    if combined is None:
+        return 1
+    res = combined["alignment"]
+    results = combined["analysis"]
+    gen = ReportGenerator()
+    pdf = (gen.generate_report(results, os.path.join(out_dir, "report.pdf"))
+           if importlib.util.find_spec("matplotlib") else None)
+    html = gen.generate_html_report(results, os.path.join(out_dir, "report.html"))
+    csvp = gen.export_csv(results, os.path.join(out_dir, "frames.csv"))
+    print(json.dumps({
+        "vmaf": results["vmaf_score"],
+        "psnr": results["psnr_score"],
+        "ssim": results["ssim_score"],
+        "alignment_confidence": res["confidence"],
+        "report_pdf": pdf, "report_html": html, "csv": csvp,
+    }, default=str))
+    return 0
+
+
 def cmd_probe(args) -> int:
     from pqa2_tpu_torch.io.video import probe_video
 
@@ -75,12 +127,12 @@ def cmd_models(args) -> int:
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(prog="pqa2_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
+    device_help = "torch device: cuda runs the kernels, cpu the plain versions"
     p = sub.add_parser("score", help="score a ref/dist pair")
     p.add_argument("reference")
     p.add_argument("distorted")
     p.add_argument("--model", default="vmaf_v0.6.1")
-    p.add_argument("--device", default="cuda",
-                   help="torch device: cuda runs the kernels, cpu the plain versions")
+    p.add_argument("--device", default="cuda", help=device_help)
     p.add_argument("--out", default=None, help="output directory")
     p.add_argument("--test-name", default=None)
     p.add_argument("--duration", type=float, default=None)
@@ -97,6 +149,20 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--no-psnr", action="store_true")
     p.add_argument("--no-ssim", action="store_true")
     p.set_defaults(fn=cmd_score)
+
+    p = sub.add_parser("align", help="bookend-align a capture to a reference")
+    p.add_argument("reference")
+    p.add_argument("capture")
+    p.add_argument("--device", default="cuda", help=device_help)
+    p.set_defaults(fn=cmd_align)
+
+    p = sub.add_parser("full", help="align + score + report")
+    p.add_argument("reference")
+    p.add_argument("capture")
+    p.add_argument("--model", default="vmaf_v0.6.1")
+    p.add_argument("--out", default=None, help="output directory")
+    p.add_argument("--device", default="cuda", help=device_help)
+    p.set_defaults(fn=cmd_full)
 
     p = sub.add_parser("probe", help="video metadata")
     p.add_argument("video")

@@ -2,8 +2,9 @@
 
 pqa2_tpu_torch imports nothing of pqa2_tpu: it keeps copies of the numpy
 oracles (``golden/``), the model loader and registry with the nine packaged
-``data/*.npz`` files, the video readers (``io/``), two utilities and the
-settings store (``app/options_manager.py``). Here
+``data/*.npz`` files, the video readers (``io/``), two utilities, the
+settings store (``app/options_manager.py``) and the report generator
+(``app/report_generator.py``). Here
 every copied constant and table is equal to the JAX package's, every copied
 oracle gives the identical output on seeded inputs, every packaged model
 loads to equal arrays, and the npz files are byte-identical. All exact: the
@@ -178,7 +179,15 @@ def test_io_copies_read_and_write_the_same(tmp_path):
             np.testing.assert_array_equal(g[p], f[p])
 
 
-def test_utils_copies():
+def test_utils_copies(tmp_path, monkeypatch):
+    """The utilities, and the report generator (app/report_generator.py,
+    which reports through the signals): the same interpretation bands, and
+    one results dict written through both packages' HTML and CSV writers
+    gives the same files (the timestamp fixed in both)."""
+    import datetime
+
+    from pqa2_tpu.app import report_generator as jax_rg
+    from pqa2_tpu_torch.app import report_generator as rg
     from pqa2_tpu_torch.utils.profiling import ThroughputMeter
     from pqa2_tpu_torch.utils.signals import Signal
 
@@ -191,6 +200,42 @@ def test_utils_copies():
     meter.add(2)
     meter.add(2)
     assert progress == [50, 100] and meter.fps > 0
+
+    public = {k for k in vars(jax_rg) if not k.startswith("_")}
+    assert public == {k for k in vars(rg) if not k.startswith("_")}
+    for k in public:
+        if k.isupper():
+            _equal(getattr(jax_rg, k), getattr(rg, k), k)
+    for fn in ("interpret_vmaf", "interpret_psnr", "interpret_ssim"):
+        for v in (None, -1.0, 0.0, 0.69, 0.7, 0.8, 0.9, 0.95, 1.0, 19.9, 20, 30, 40,
+                  59.99, 60, 70, 80, 90, 100.0, float("inf")):
+            assert getattr(rg, fn)(v) == getattr(jax_rg, fn)(v), (fn, v)
+
+    class FixedNow(datetime.datetime):
+        @classmethod
+        def now(cls, tz=None):
+            return cls(2026, 1, 2, 3, 4, 5)
+
+    for m in (jax_rg, rg):
+        monkeypatch.setattr(m, "datetime", FixedNow)
+    frames = [{"frameNum": i, "metrics": {"vmaf": 80.0 + i, "psnr_y": 40.5 - i,
+                                          "float_ssim": 0.97, "adm2": 0.9 + i / 100}}
+              for i in range(5)]
+    frames[2]["metrics"]["psnr_y"] = float("inf")
+    results = {"vmaf_score": 82.0, "psnr_score": float("inf"), "ssim_score": 0.97,
+               "reference_video": "ref <a>.y4m", "distorted_video": "dist.y4m",
+               "model": "vmaf_v0.6.1", "width": 96, "height": 64, "frame_count": 5,
+               "raw_results": {"frames": frames}}
+    assert rg._frame_series(results) == jax_rg._frame_series(results)
+    assert rg.ReportGenerator()._summary_rows(results) == \
+        jax_rg.ReportGenerator()._summary_rows(results)
+    for name, m in (("jax", jax_rg), ("port", rg)):
+        gen = m.ReportGenerator()
+        assert gen.generate_html_report(results, str(tmp_path / f"{name}.html"))
+        assert gen.export_csv(results, str(tmp_path / f"{name}.csv"))
+    for ext in ("html", "csv"):
+        assert (tmp_path / f"jax.{ext}").read_bytes() == (tmp_path / f"port.{ext}").read_bytes()
+    assert "2026-01-02 03:04:05" in (tmp_path / "port.html").read_text()
 
 
 def test_options_manager_copy(tmp_path):
