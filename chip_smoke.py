@@ -75,14 +75,39 @@ any failure raises and the exit code is 1):
      Its wall seconds (a first run and two warm runs), the statistics
      pass's ms per 64-frame chunk, the phase correlation's ms per 32 frames
      and the shifts it estimates on the blurred loops rolled by (2, 6) are
-     printed;
+     printed.
+     Then the scoring service (``ScoringService(device="cuda")`` with its
+     warmup and an HTTP server on a free port): three jobs over HTTP on the
+     slice pair (the default, ``vmaf_float_v0.6.1`` at
+     ``precision: "float"`` and ``precision: "integer_fast"``) must finish
+     with JSON logs equal in every value to the slice runs' and with the
+     slice runs' launches (counted per job on the worker thread; the
+     integer job audits nothing), while GET /healthz, /models and /jobs
+     answer 200, a malformed spec 400, an unknown job 404 and a queued
+     fourth job is cancelled with 200; each job's seconds are printed
+     beside a direct ``analyze_videos`` of the same pair; then the
+     ``serve --warmup`` subcommand in a fresh process (its worker loads
+     the library and audits the log2 table) scores one job, equal to the
+     slice run, and exits 0 on SIGINT. Then the batch suite
+     (``run_batch_suite(device="cuda")``) on three rungs of the slice
+     reference: the slice's distorted clip (its VMAF must equal the slice
+     run's in every bit), a stronger distortion and the reference itself,
+     with a report and a CSV per rung and three integer jobs' launches.
+     Then the capture chain: ``CaptureManager`` with
+     ``FilePlaybackBackend(noise_sigma=2.0)`` plays a 60-frame 960x540
+     reference between white bookends (its frame count and duration
+     policy printed) and ``run_combined_workflow(device="cuda")`` must
+     align the capture as ``BookendAligner(device="cpu")`` does and score
+     it to finite values; the colorspace conversions on the card must give
+     the CPU's bits;
   4. CUDA-event times of each kernel against its plain version at 1080p,
      each kernel's bound (the least time the card could take for the same
      work), and each slice's frames per second: its first run and three
      warm runs. With --profile, torch.profiler over one more warm run of
-     each slice and of the workflow (device busy time, idle share, and the
-     count and bytes of host-to-device copies) and over three scale-0 or
-     level-0 calls of each VIF and ADM kernel (kernel 1f too).
+     each slice, of the workflow and of one service job (device busy time,
+     idle share, and the count and bytes of host-to-device copies) and over
+     three scale-0 or level-0 calls of each VIF and ADM kernel (kernel 1f
+     too).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX and
@@ -791,14 +816,15 @@ def run_slice(torch, analyzer, ref_path, dist_path, model, n, label):
 def warm_runs(torch, analyzer, ref_path, dist_path, model, first, n, card, profile_dir,
               label, runs=3):
     """Phase 4b: warm runs of the same call for the frame rate (and, with
-    --profile, one more under torch.profiler)."""
-    fps = []
+    --profile, one more under torch.profiler). Returns their seconds."""
+    fps, secs = [], []
     for _ in range(runs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res2 = analyzer.analyze_videos(ref_path, dist_path, model=model)
         torch.cuda.synchronize()
-        fps.append(n / (time.perf_counter() - t0))
+        secs.append(time.perf_counter() - t0)
+        fps.append(n / secs[-1])
         if res2 is None or abs(res2["vmaf_score"] - first[0]["vmaf_score"]) > 0:
             raise AssertionError(f"{label}: a warm run differs from the first")
     if profile_dir:
@@ -808,6 +834,7 @@ def warm_runs(torch, analyzer, ref_path, dist_path, model, first, n, card, profi
         f"{first[1]:.3f} s ({n / first[1]:.2f} fps), warm runs "
         + ", ".join(f"{f:.2f}" for f in fps)
         + f" fps (median {sorted(fps)[len(fps) // 2]:.2f}) [{card}]")
+    return secs
 
 
 def expect_counts(counts, label, want):
@@ -819,9 +846,20 @@ def expect_counts(counts, label, want):
                                  f"{'at least once' if v is None else v}: {counts}")
 
 
+def slice_record(res, counts):
+    """What the later phases hold a slice run's family to: its JSON log
+    (frames and pooled metrics), pooled VMAF and launch counts (read just
+    after the run), and later its warm runs' seconds."""
+    with open(res["json_path"]) as f:
+        log_json = json.load(f)
+    return {"frames": log_json["frames"], "pooled": log_json["pooled_metrics"],
+            "vmaf_score": res["vmaf_score"], "counts": counts}
+
+
 def phase_slice(torch, device, results, card, profile_dir=None):
     """Phase 3 (+ 4b): the three main paths and the in-memory path end to
-    end, with the oracle and cross-path checks."""
+    end, with the oracle and cross-path checks. Returns the pair's paths and
+    each family's ``slice_record``."""
     import numpy as np
 
     from pqa2_tpu_torch.app.vmaf_analyzer import VMAFAnalyzer
@@ -852,6 +890,7 @@ def phase_slice(torch, device, results, card, profile_dir=None):
     exact = analyzer("smoke")
     first = run_slice(torch, exact, ref_path, dist_path, model, n, model)
     counts = first[2]
+    slices = {"integer": slice_record(first[0], counts)}
     expect_counts(counts, model, {k: None for k in (*INTEGER_KERNELS, "ssim_sse_plane")})
     expect_counts(counts, model, {k: 0 for k in (*FLOAT_KERNELS, *FAST_KERNELS)})
     # The process's first integer clip audits the log2 lookup, once.
@@ -880,13 +919,15 @@ def phase_slice(torch, device, results, card, profile_dir=None):
             raise AssertionError(f"frame 32 {nm} {got} vs oracle {want}")
     log(f"[oracle] {model} frame 32: motion {feats['motion'][32]:.6f} "
         f"(oracle {mo[1]:.6f}), motion2 {feats['motion2'][32]:.6f} (oracle {m2o[1]:.6f})")
-    warm_runs(torch, exact, ref_path, dist_path, model, first, n, card, profile_dir, model)
+    slices["integer"]["warm"] = warm_runs(torch, exact, ref_path, dist_path, model, first, n,
+                                          card, profile_dir, model)
 
     # The float family: vmaf_float_v0.6.1 runs kernels 4-7 and none of 1-3.
     model = "vmaf_float_v0.6.1"
     flt = analyzer("smoke")
     first = run_slice(torch, flt, ref_path, dist_path, model, n, model)
     counts = first[2]
+    slices["float"] = slice_record(first[0], counts)
     expect_counts(counts, model, {k: None for k in (*FLOAT_KERNELS, "ssim_sse_plane")})
     expect_counts(counts, model, {k: 0 for k in (*INTEGER_KERNELS, *FAST_KERNELS)})
     for k in FLOAT_KERNELS:
@@ -909,7 +950,8 @@ def phase_slice(torch, device, results, card, profile_dir=None):
             raise AssertionError(f"{model} frame 32 {nm} {got} vs oracle {want}")
     log(f"[oracle] {model} frame 32: motion {feats['motion'][32]:.6f} (oracle "
         f"{mo[1]:.6f}), motion2 {feats['motion2'][32]:.6f} (oracle {m2o[1]:.6f})")
-    warm_runs(torch, flt, ref_path, dist_path, model, first, n, card, profile_dir, model)
+    slices["float"]["warm"] = warm_runs(torch, flt, ref_path, dist_path, model, first, n, card,
+                                        profile_dir, model)
 
     # integer_fast: vmaf_v0.6.1 with VIF's smooth-log statistic runs kernel
     # 1f in place of kernel 1, and no log2 table audit.
@@ -917,6 +959,7 @@ def phase_slice(torch, device, results, card, profile_dir=None):
     fast = analyzer("smoke_fast", "integer_fast")
     first = run_slice(torch, fast, ref_path, dist_path, model, n, label)
     counts = first[2]
+    slices["integer_fast"] = slice_record(first[0], counts)
     expect_counts(counts, label, {"vif_int_scale_fast": 12, "vif_int_scale": 0,
                                   "log2_table_audit": 0, "adm_int_level": 12,
                                   "ssim_sse_plane": None})
@@ -934,8 +977,8 @@ def phase_slice(torch, device, results, card, profile_dir=None):
     log(f"[slice] {label} against the integer run: max |feature delta| {dfeat:.3e} "
         f"(vif only; adm2 and motion equal), per-frame max |VMAF delta| "
         f"{dvmaf.max():.3e} (mean {dvmaf.mean():.3e})")
-    warm_runs(torch, fast, ref_path, dist_path, model, first, n, card, profile_dir,
-              "vmaf_v0.6.1_integer_fast")
+    slices["integer_fast"]["warm"] = warm_runs(torch, fast, ref_path, dist_path, model, first,
+                                               n, card, profile_dir, "vmaf_v0.6.1_integer_fast")
 
     # The in-memory path: the pair decoded once, then analyze_frames. It
     # must give the integer run's per-frame values in every bit.
@@ -967,6 +1010,7 @@ def phase_slice(torch, device, results, card, profile_dir=None):
     log(f"[slice] {label}: {len(pairs)} per-frame arrays (features, VMAF, PSNR, SSIM) "
         f"equal to analyze_videos' in every bit; {elapsed:.3f} s for {n} decoded frames "
         f"[{card}]")
+    return ref_path, dist_path, slices
 
 
 WORKFLOW_REF_FRAMES = 150  # 5 s at 30 fps
@@ -1264,6 +1308,375 @@ def phase_workflow(torch, device, card, profile_dir=None, h=1080, w=1920,
     del ref, loop
 
 
+def http_json(conn, method, path, body=None):
+    """One request on an ``http.client`` connection -> (status, JSON body)."""
+    conn.request(method, path, body=json.dumps(body) if body is not None else None)
+    r = conn.getresponse()
+    return r.status, json.loads(r.read() or b"{}")
+
+
+def wait_job(conn, job_id, timeout=600.0):
+    """Poll ``GET /jobs/<id>`` until the job has finished -> its dict."""
+    deadline = time.time() + timeout
+    while True:
+        code, job = http_json(conn, "GET", f"/jobs/{job_id}")
+        if code != 200:
+            raise AssertionError(f"GET /jobs/{job_id}: {code} {job}")
+        if job["status"] not in ("queued", "running"):
+            return job
+        if time.time() > deadline:
+            raise AssertionError(f"job {job_id} still {job['status']} after {timeout} s")
+        time.sleep(0.05)
+
+
+def check_job_log(label, job, want):
+    """A finished job's JSON log against a slice run's: every per-frame
+    value and pooled metric equal."""
+    if job["status"] != "done":
+        raise AssertionError(f"{label}: job {job['job_id']} {job['status']}: {job.get('error')}")
+    with open(job["result"]["json_path"]) as f:
+        got = json.load(f)
+    if got["frames"] != want["frames"] or got["pooled_metrics"] != want["pooled"]:
+        raise AssertionError(f"{label}: the job's JSON log differs from the slice run's")
+    return len(got["frames"])
+
+
+def stdout_lines(proc):
+    """A queue that one thread fills with ``proc``'s stdout lines."""
+    import queue
+    import threading
+
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in iter(proc.stdout.readline, "")],
+                     daemon=True).start()
+    return lines
+
+
+def read_line(lines, proc, pattern, timeout):
+    """The next line from ``lines`` (``stdout_lines(proc)``) that matches
+    ``pattern`` (a regular expression) within ``timeout`` seconds -> its
+    match."""
+    import queue
+    import re
+
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        try:
+            line = lines.get(timeout=max(deadline - time.time(), 0.01))
+        except queue.Empty:
+            break
+        log(f"[serve cli] {line.rstrip()}")
+        m = re.search(pattern, line)
+        if m:
+            return m
+    raise AssertionError(f"no line matching {pattern!r} within {timeout} s "
+                         f"(exit code {proc.poll()})")
+
+
+def phase_serve(torch, device, card, ref_path, dist_path, slices, profile_dir=None):
+    """Phase 3, the scoring service on the card: ScoringService with a
+    warmup and an HTTP server, three jobs on the slice pair (the integer,
+    float and integer_fast families), each job's JSON log equal to the slice
+    run's and its launches the slice run's; the HTTP routes and a cancelled
+    job; then the ``serve --warmup`` subcommand in a fresh process."""
+    import http.client
+    import signal
+    import threading
+
+    from pqa2_tpu_torch.app.service import ScoringService
+    from pqa2_tpu_torch.app.vmaf_analyzer import VMAFAnalyzer
+
+    sdir = os.path.join(WORK_DIR, "serve")
+    service = ScoringService(out_dir=os.path.join(sdir, "out"), device=device)
+    per_job = {}
+    run_job = service._run_job
+
+    def counted_job(job):
+        # The jobs run one at a time on the worker thread: every count is
+        # set to 0 just before a job runs and read just after it.
+        counters = kernel_counters()
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+        try:
+            run_job(job)
+        finally:
+            torch.cuda.synchronize()
+            per_job[job.id] = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+
+    service._run_job = counted_job
+    service.start()
+    httpd = None
+    try:
+        t0 = time.perf_counter()
+        warm = service.warmup()
+        warm_s = time.perf_counter() - t0
+        if warm.status != "done":
+            raise AssertionError(f"warmup {warm.status}: {warm.error}")
+        log(f"[serve] warmup (a 4-frame 384x216 integer job; the library was loaded and the "
+            f"log2 audit passed earlier in this process): {warm_s:.3f} s, launches "
+            f"{per_job[warm.id]} [{card}]")
+        httpd = service.make_server(port=0)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=600)
+        pair = {"reference": ref_path, "distorted": dist_path}
+        specs = {"integer": dict(pair),
+                 "float": dict(pair, model="vmaf_float_v0.6.1", precision="float"),
+                 "integer_fast": dict(pair, precision="integer_fast")}
+        ids = {}
+        for family, spec in specs.items():
+            code, out = http_json(conn, "POST", "/score", spec)
+            if code != 202:
+                raise AssertionError(f"POST /score {spec}: {code} {out}")
+            ids[family] = out["job_id"]
+        code, out = http_json(conn, "POST", "/score", dict(pair, test_name="cancelled"))
+        code, cancel = http_json(conn, "POST", f"/jobs/{out['job_id']}/cancel")
+        if code != 200 or cancel != {"job_id": out["job_id"], "status": "cancelled"}:
+            raise AssertionError(f"cancel of a queued job: {code} {cancel}")
+        for method, path, body, want in (("GET", "/healthz", None, 200),
+                                         ("GET", "/models", None, 200),
+                                         ("POST", "/score", {"reference": ref_path}, 400),
+                                         ("GET", "/jobs/job-404", None, 404)):
+            code, out = http_json(conn, method, path, body)
+            if code != want:
+                raise AssertionError(f"{method} {path}: {code} {out}, expected {want}")
+            if path == "/models" and "vmaf_v0.6.1" not in out["models"]:
+                raise AssertionError(f"/models: {out}")
+        log("[serve] GET /healthz and /models 200, a malformed spec 400, an unknown job 404, "
+            "a fourth job cancelled while the first three were queued or running: 200")
+        jobs = {family: wait_job(conn, job_id) for family, job_id in ids.items()}
+        code, listing = http_json(conn, "GET", "/jobs")
+        statuses = [j["status"] for j in listing["jobs"]]
+        if code != 200 or statuses != ["cancelled", "done", "done", "done", "done"]:
+            raise AssertionError(f"GET /jobs: {code} {statuses}")
+        for family, job in jobs.items():
+            n = check_job_log(f"serve {family}", job, slices[family])
+            want = dict(slices[family]["counts"], log2_table_audit=0)
+            if per_job[job["job_id"]] != want:
+                raise AssertionError(f"serve {family}: launches {per_job[job['job_id']]}, "
+                                     f"the slice run's {want}")
+        conn.close()
+
+        direct = {}
+        for family, spec in specs.items():
+            a = VMAFAnalyzer(device=device)
+            a.set_output_directory(os.path.join(sdir, "direct"))
+            a.feature_precision = spec.get("precision")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if a.analyze_videos(ref_path, dist_path, model=spec.get("model")) is None:
+                raise AssertionError(f"direct analyze_videos {family} failed")
+            direct[family] = time.perf_counter() - t0
+        for family, job in jobs.items():
+            run_s = job["finished_at"] - job["started_at"]
+            log(f"[times] serve {family} job, {n} frames 1080p: submit to finish "
+                f"{job['finished_at'] - job['submitted_at']:.3f} s, run {run_s:.3f} s; direct "
+                f"analyze_videos {direct[family]:.3f} s (slice phase warm runs "
+                + ", ".join(f"{t:.3f}" for t in slices[family]["warm"])
+                + f" s); overhead {run_s - direct[family]:+.3f} s [{card}]")
+        log(f"[serve] three jobs done; each JSON log equal to the slice run's in every value; "
+            f"launches: {[per_job[j['job_id']] for j in jobs.values()]}")
+        if profile_dir:
+            def one_job():
+                job = service.submit(dict(pair, test_name="profiled"))
+                while job.status in ("queued", "running"):
+                    time.sleep(0.005)
+                if job.status != "done":
+                    raise AssertionError(f"profiled job {job.status}: {job.error}")
+
+            profile_run(torch, one_job, profile_dir, card, "serve_job_warm")
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        service.stop()
+
+    # The serve subcommand in a fresh process: its worker thread loads the
+    # library and runs the log2 audit during --warmup, then one job.
+    env = dict(os.environ, PYTHONPATH=HERE)
+    err_path = os.path.join(sdir, "serve_cli.err")
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "pqa2_tpu_torch", "serve", "--port", "0", "--warmup",
+             "--out", os.path.join(sdir, "cli"), "--device", device.type],
+            cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+        try:
+            lines = stdout_lines(proc)
+            m = read_line(lines, proc, r"\[serve\] warmup (\w+) in ([0-9.]+) s", 300)
+            if m.group(1) != "done":
+                raise AssertionError(f"serve --warmup: warmup {m.group(1)}")
+            port = int(read_line(lines, proc, r"listening on http://127\.0\.0\.1:(\d+)",
+                                 60).group(1))
+            listen_s = time.perf_counter() - t0
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+            code, health = http_json(conn, "GET", "/healthz")
+            if code != 200 or health["jobs_done"] != 1:
+                raise AssertionError(f"serve --warmup /healthz: {code} {health}")
+            code, out = http_json(conn, "POST", "/score", specs["integer"])
+            job = wait_job(conn, out["job_id"])
+            check_job_log("serve subcommand", job, slices["integer"])
+            conn.close()
+            proc.send_signal(signal.SIGINT)  # the server closes, the worker stops
+            rc = proc.wait(timeout=60)
+            if rc != 0:
+                raise AssertionError(f"serve subcommand exited {rc}")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            proc.stdout.close()
+    log(f"[times] serve subcommand in a fresh process: warmup {float(m.group(2)):.3f} s "
+        f"(in the worker thread: the library load, the log2 audit and a 4-frame job), listening "
+        f"{listen_s:.3f} s after start; then one integer job: run "
+        f"{job['finished_at'] - job['started_at']:.3f} s, its JSON log equal to the "
+        f"slice run's; SIGINT, exit 0 [{card}]")
+
+
+def phase_batch(torch, device, card, ref_path, dist_path, slices, n=72, h=1080, w=1920):
+    """Phase 3, the batch ladder suite on the card: three rungs on the
+    slice reference (the slice's distorted clip, a stronger distortion,
+    the reference itself) through run_batch_suite(device="cuda")."""
+    from pqa2_tpu_torch.io.y4m import write_y4m
+    from pqa2_tpu_torch.pipeline.batch import run_batch_suite
+
+    bdir = os.path.join(WORK_DIR, "batch")
+    os.makedirs(bdir, exist_ok=True)
+    strong_path = os.path.join(bdir, "dist_strong_1080p.y4m")
+    ref = smooth_frames(torch, n, h, w, 11, device)
+    strong = distort(torch, ref, 13, radius=3, noise=40)
+    c = torch.nn.functional.avg_pool2d(strong.float()[:, None], 2)[:, 0].round().to(torch.uint8)
+    y, c = strong.cpu().numpy(), c.cpu().numpy()
+    write_y4m(strong_path, [{"y": y[i], "u": c[i], "v": 255 - c[i]} for i in range(n)])
+    del ref, strong, c, y
+    spec = {"entries": [
+        {"reference": ref_path, "distorted": dist_path, "name": "rung_slice"},
+        {"reference": ref_path, "distorted": strong_path, "name": "rung_strong"},
+        {"reference": ref_path, "distorted": ref_path, "name": "rung_reference"}]}
+    out_dir = os.path.join(bdir, "suite")
+    summary, secs, counts = counted(torch, lambda: run_batch_suite(spec, out_dir,
+                                                                   device=device))
+    with open(os.path.join(out_dir, "batch_summary.json")) as f:
+        on_disk = json.load(f)
+    rows = summary["clips"]
+    if on_disk["n_clips"] != 3 or [r.get("name") for r in rows] != [
+            e["name"] for e in spec["entries"]] or any("error" in r for r in rows):
+        raise AssertionError(f"batch summary: {summary}")
+    for r in rows:
+        for path in (r["html_report"], os.path.join(out_dir, r["name"],
+                                                    f"{r['name']}_frames.csv")):
+            if not os.path.getsize(path):
+                raise AssertionError(f"batch: {path} is empty")
+    if rows[0]["vmaf"] != slices["integer"]["vmaf_score"]:
+        raise AssertionError(f"batch rung_slice VMAF {rows[0]['vmaf']!r} != the slice "
+                             f"run's {slices['integer']['vmaf_score']!r}")
+    want = {k: 3 * v for k, v in dict(slices["integer"]["counts"], log2_table_audit=0).items()}
+    if counts != want:
+        raise AssertionError(f"batch launches {counts}, expected three integer jobs' {want}")
+    log("[batch] three rungs: " + "; ".join(
+        f"{r['name']} vmaf {r['vmaf']:.4f}, psnr {r['psnr']:.4f}, ssim {r['ssim']:.6f}, "
+        f"{r['seconds']:.3f} s" for r in rows)
+        + f"; rung_slice's VMAF equal to the slice run's in every bit; HTML and CSV per rung; "
+        f"launches {counts} (three integer jobs')")
+    log(f"[times] batch suite, 3 rungs of {n} frames 1080p: aggregate_fps "
+        f"{summary['aggregate_fps']}, wall {summary['wall_seconds']} s ({secs:.3f} s with the "
+        f"summary written) [{card}]")
+
+
+def phase_capture(torch, device, card, h=540, w=960, n_ref=60):
+    """Phase 3, the simulated capture chain: CaptureManager with the
+    file-playback backend plays a 60-frame 960x540 reference between white
+    bookends with noise; run_combined_workflow on the card aligns the
+    capture as the CPU's BookendAligner does and scores it."""
+    import numpy as np
+
+    from pqa2_tpu_torch.app import (
+        BookendAligner,
+        CaptureManager,
+        CaptureState,
+        OptionsManager,
+        VMAFAnalyzer,
+        run_combined_workflow,
+    )
+    from pqa2_tpu_torch.app.capture import FilePlaybackBackend
+    from pqa2_tpu_torch.io.video import probe_video
+    from pqa2_tpu_torch.io.y4m import write_y4m
+    from pqa2_tpu_torch.ops import colorspace
+
+    cdir = os.path.join(WORK_DIR, "capture")
+    os.makedirs(cdir, exist_ok=True)
+    ref_path = os.path.join(cdir, "ref_540p.y4m")
+    ref = workflow_content(torch, n_ref, h, w, device)
+    c = torch.nn.functional.avg_pool2d(ref.float()[:, None], 2)[:, 0].round().to(torch.uint8)
+    ry, rc = ref.cpu().numpy(), c.cpu().numpy()
+    write_y4m(ref_path, [{"y": ry[i], "u": rc[i], "v": 255 - rc[i]} for i in range(n_ref)])
+
+    # The colorspace conversions on the card give the CPU's bits.
+    rgb = torch.stack([ref[0], c.repeat_interleave(2, 1).repeat_interleave(2, 2)[0],
+                       255 - ref[1]], dim=-1)
+    c422 = c[:2].repeat_interleave(2, dim=1)  # (2, h, w / 2)
+    packed = colorspace.planar_to_uyvy422(ref[:2], c422, 255 - c422)
+    for name, got, want in (
+            ("rgb_to_yuv", colorspace.rgb_to_yuv(rgb), colorspace.rgb_to_yuv(rgb.cpu())),
+            ("yuv_to_rgb", colorspace.yuv_to_rgb(rgb), colorspace.yuv_to_rgb(rgb.cpu())),
+            ("uyvy422_to_planar", colorspace.uyvy422_to_planar(packed)["y"],
+             colorspace.uyvy422_to_planar(packed.cpu())["y"]),
+            ("chroma_444_to_420", colorspace.chroma_444_to_420(ref),
+             colorspace.chroma_444_to_420(ref.cpu()))):
+        if got.device != device or not torch.equal(got.cpu(), want):
+            raise AssertionError(f"colorspace {name} on the card != the CPU's")
+    del ref, c, rgb, c422, packed
+    log(f"[capture] colorspace on the card: rgb_to_yuv, yuv_to_rgb, uyvy422_to_planar and "
+        f"chroma_444_to_420 equal to the CPU's in every bit at {w}x{h}")
+
+    om = OptionsManager(settings_file=os.path.join(cdir, "settings.json"), save_debounce_s=0)
+    om.update_setting("bookend", "frame_offset", 0)
+    cm = CaptureManager(options_manager=om, backend=FilePlaybackBackend(noise_sigma=2.0))
+    cm.set_output_directory(cdir)
+    cm.set_test_name("capture")
+    info = probe_video(ref_path)
+    cm.set_reference_video(info)
+    policy = cm._calculate_capture_duration()
+    done, states = [], []
+    cm.capture_finished.connect(lambda ok, p: done.append((ok, p)))
+    cm.state_changed.connect(lambda s: states.append(s.name))
+    t0 = time.perf_counter()
+    if not cm.start_bookend_capture("FilePlayback") or not cm.wait(timeout=600):
+        raise AssertionError("the capture did not start or did not finish")
+    capture_s = time.perf_counter() - t0
+    if not done or not done[0][0] or cm.state != CaptureState.COMPLETED:
+        raise AssertionError(f"capture failed: {done} {cm.state}")
+    cap_path = done[0][1]
+    n_cap = probe_video(cap_path)["frame_count"]
+    log(f"[capture] duration policy: a {info['duration']:.3f} s reference, loops x "
+        f"(reference + 2 x 0.2 s bookend) x 1.2, ceil -> {policy:.0f} s; {n_cap} frames "
+        f"captured at {w}x{h} (white bookends, noise sigma 2.0) in {capture_s:.3f} s; "
+        f"states {states}")
+
+    analyzer = VMAFAnalyzer(device=device)
+    analyzer.set_output_directory(os.path.join(cdir, "out"))
+    out, secs, counts = counted(torch, lambda: run_combined_workflow(
+        ref_path, cap_path, options_manager=om, aligner=BookendAligner(om, device=device),
+        analyzer=analyzer, device=device))
+    if out is None:
+        raise AssertionError("run_combined_workflow on the capture failed")
+    plain = BookendAligner(om, device="cpu").align_bookend_videos(ref_path, cap_path)
+    if plain is None or without_paths(out["alignment"]) != without_paths(plain):
+        raise AssertionError(f"capture alignment {out['alignment']} != the CPU "
+                             f"BookendAligner's {plain}")
+    vmaf = analyzer.last_scores.vmaf
+    if not (np.all(np.isfinite(vmaf)) and out["analysis"]["frame_count"] > 0):
+        raise AssertionError(f"capture scores: {vmaf}")
+    expect_counts(counts, "capture workflow", {k: None for k in (
+        "vif_int_scale", "adm_int_level", "ssim_sse_plane")})
+    a = out["alignment"]
+    log(f"[capture] run_combined_workflow(device='cuda'): alignment equal to "
+        f"BookendAligner(device='cpu')'s (offset {a['offset_frames']} frames, reference "
+        f"{a['ref_range']}, capture {a['cap_range']}, confidence {a['confidence']:.6f}); "
+        f"{out['analysis']['frame_count']} frames scored, vmaf "
+        f"{out['analysis']['vmaf_score']:.4f} (per frame {vmaf.min():.3f}..{vmaf.max():.3f}); "
+        f"{secs:.3f} s; launches {counts} [{card}]")
+
+
 def profile_run(torch, run, out_dir, card, label):
     """torch.profiler over one call of ``run`` (a warm slice run, or one
     kernel call): device busy time against wall time, and the kernel table,
@@ -1406,8 +1819,11 @@ def main(argv=None) -> int:
                    "launches": 0, "max_abs_err": None, "ms": None, "plain_ms": None,
                    "bound_ms": None, "bound_by": None, "library_ms": None}
                for k, (src, rep) in KERNELS.items()}
-    phase_slice(torch, device, results, card, args.profile)
+    ref_path, dist_path, slices = phase_slice(torch, device, results, card, args.profile)
     phase_workflow(torch, device, card, args.profile)
+    phase_serve(torch, device, card, ref_path, dist_path, slices, args.profile)
+    phase_batch(torch, device, card, ref_path, dist_path, slices)
+    phase_capture(torch, device, card)
     torch.cuda.empty_cache()
     ref, dist = phase_kernels(torch, device, results)
     phase_times(torch, device, results, ref, dist, card, args.profile)

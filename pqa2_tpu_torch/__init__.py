@@ -10,17 +10,22 @@ Layout mirrors ``pqa2_tpu`` so each module's counterpart is easy to find:
 
   ops/       plain PyTorch versions (``filters``, ``vif``, ``adm``,
              ``motion``, ``vif_int``, ``motion_int``, ``adm_int``,
-             ``ssim``, ``psnr``) and the kernel wrappers (``cuda_vif``,
+             ``ssim``, ``psnr``), the kernel wrappers (``cuda_vif``,
              ``cuda_adm``, ``cuda_motion``, ``cuda_vif_int``,
-             ``cuda_adm_int``, ``cuda_ssim``)
+             ``cuda_adm_int``, ``cuda_ssim``) and ``colorspace``
   golden/    copies of the numpy oracles, tables and constants
-  io/        copies of the y4m / cv2 / ffmpeg-pipe video readers
+  io/        copies of the y4m / cv2 / ffmpeg-pipe video readers and the
+             capture-file repair
   models/    copies of the libvmaf model loader and registry with the
              packaged ``data/*.npz`` weights, and the nu-SVR predictor as
              an ``nn.Module``
-  pipeline/  feature extraction, streaming clip scoring, JSON output
-  app/       ``VMAFAnalyzer`` with the reference's results dict/artifacts
-  utils/     chunk padding, and copies of ``signals`` and ``profiling``
+  pipeline/  feature extraction, streaming and in-memory clip scoring,
+             JSON output, the batch ladder suite
+  align/     bookend alignment and motion compensation
+  app/       ``VMAFAnalyzer`` with the reference's results dict/artifacts,
+             the aligner, the decode-once workflow, the scoring service,
+             the capture manager, the results store and reports
+  utils/     copies of ``signals`` and ``profiling``
   csrc/      CUDA sources
 
 Every public entry point takes an explicit ``device``. Kernel wrappers use

@@ -1,8 +1,5 @@
 # Copy of pqa2_tpu/app/options_manager.py with its imports pointed at this package:
-# the port keeps its own copy and imports nothing of pqa2_tpu. The device-discovery
-# methods (get_decklink_devices, get_decklink_formats, test_device_connection,
-# get_ffmpeg_path) are left out: they call app/devices.py, the capture backends,
-# which the port does not have.
+# the port keeps its own copy and imports nothing of pqa2_tpu.
 """Settings store.
 
 Rebuild of the reference OptionsManager (app/options_manager.py): the same
@@ -255,3 +252,34 @@ class OptionsManager:
             self.settings = copy.deepcopy(self.default_settings)
         self.save_settings(immediate=True)
         self.settings_updated.emit(self.get_settings())
+
+    # -- device discovery (API parity with app/options_manager.py:304-887;
+    #    implementation lives in app/devices.py) ----------------------------
+
+    def get_decklink_devices(self):
+        from pqa2_tpu_torch.app import devices
+
+        return devices.get_decklink_devices()
+
+    def get_decklink_formats(self, device_name: str):
+        from pqa2_tpu_torch.app import devices
+
+        return devices.get_decklink_formats(device_name)
+
+    def test_device_connection(self, device_name: str):
+        from pqa2_tpu_torch.app import devices
+
+        return devices.test_device_connection(device_name)
+
+    def get_ffmpeg_path(self):
+        configured = self.get_setting("paths", "ffmpeg_path")
+        if configured:
+            # Make the configured binary visible to the pipe-ingest fallback
+            # (io/ffmpeg_pipe.py resolves it after env overrides).
+            from pqa2_tpu_torch.io import ffmpeg_pipe
+
+            ffmpeg_pipe.configure(ffmpeg_path=configured)
+            return configured
+        from pqa2_tpu_torch.app import devices
+
+        return devices.ffmpeg_path()

@@ -2,9 +2,11 @@
 
 pqa2_tpu_torch imports nothing of pqa2_tpu: it keeps copies of the numpy
 oracles (``golden/``), the model loader and registry with the nine packaged
-``data/*.npz`` files, the video readers (``io/``), two utilities, the
-settings store (``app/options_manager.py``) and the report generator
-(``app/report_generator.py``). Here
+``data/*.npz`` files, the video readers and the capture-file repair
+(``io/``), two utilities, the settings store (``app/options_manager.py``),
+the report generator (``app/report_generator.py``), the results store, the
+capture-device discovery and the capture manager (``app/results_store.py``,
+``app/devices.py``, ``app/capture.py``), and the colorspace matrices. Here
 every copied constant and table is equal to the JAX package's, every copied
 oracle gives the identical output on seeded inputs, every packaged model
 loads to equal arrays, and the npz files are byte-identical. All exact: the
@@ -178,6 +180,23 @@ def test_io_copies_read_and_write_the_same(tmp_path):
         for p in "yuv":
             np.testing.assert_array_equal(g[p], f[p])
 
+    # io/repair.py: a capture cut mid-frame keeps its good prefix, and both
+    # copies judge and salvage it the same way.
+    from pqa2_tpu.io import repair as jax_repair
+    from pqa2_tpu_torch.io import repair
+
+    assert repair.MAX_REPAIR_ATTEMPTS == jax_repair.MAX_REPAIR_ATTEMPTS
+    cut = tmp_path / "cut.y4m"
+    cut.write_bytes((tmp_path / "p.y4m").read_bytes()[:-500])
+    for path in (str(tmp_path / "p.y4m"), str(cut), str(tmp_path / "none.y4m")):
+        assert repair.validate_video_file(path) == jax_repair.validate_video_file(path)
+    assert repair.validate_video_file(str(cut)) and not repair.validate_video_file("")
+    a = repair.repair_video_file(str(cut), str(tmp_path / "port_fixed.y4m"))
+    b = jax_repair.repair_video_file(str(cut), str(tmp_path / "jax_fixed.y4m"))
+    assert open(a, "rb").read() == open(b, "rb").read()
+    assert video.probe_video(a)["frame_count"] == 2
+    assert repair.repair_video_file(str(tmp_path / "none.y4m")) is None
+
 
 def test_utils_copies(tmp_path, monkeypatch):
     """The utilities, and the report generator (app/report_generator.py,
@@ -236,22 +255,76 @@ def test_utils_copies(tmp_path, monkeypatch):
     for ext in ("html", "csv"):
         assert (tmp_path / f"jax.{ext}").read_bytes() == (tmp_path / f"port.{ext}").read_bytes()
     assert "2026-01-02 03:04:05" in (tmp_path / "port.html").read_text()
+    _app_copies(tmp_path, results)
 
 
-def test_options_manager_copy(tmp_path):
+def _app_copies(tmp_path, results):
+    """The results store, the capture-device discovery, the capture
+    manager's constants, FileManager's paths and the colorspace matrices."""
+    from pqa2_tpu.app import capture as jax_capture
+    from pqa2_tpu.app import devices as jax_devices
+    from pqa2_tpu.app import results_store as jax_store
+    from pqa2_tpu.app import utils as jax_utils
+    from pqa2_tpu.ops import colorspace as jax_cs
+    from pqa2_tpu_torch.app import capture, devices, results_store, utils
+    from pqa2_tpu_torch.ops import colorspace
+
+    for jax_m, port_m in ((jax_store, results_store), (jax_devices, devices),
+                          (jax_capture, capture)):
+        public = {k for k in vars(jax_m) if not k.startswith("_")}
+        assert public == {k for k in vars(port_m) if not k.startswith("_")}, port_m
+        for k in public:
+            if k.isupper():
+                _equal(getattr(jax_m, k), getattr(port_m, k), f"{port_m.__name__}.{k}")
+    assert capture._DEFAULT_REGISTRY == jax_capture._DEFAULT_REGISTRY
+    assert [(s.name, s.value) for s in capture.CaptureState] == \
+        [(s.name, s.value) for s in jax_capture.CaptureState]
+    cmd = [(m.DeckLinkBackend(ffmpeg_path="ffmpeg").build_command(
+        "Intensity Shuttle", 12.5, "out.mp4", {"disable_audio": True, "crf": 20}))
+        for m in (jax_capture, capture)]
+    assert cmd[0] == cmd[1]
+
+    _equal(jax_devices.get_default_intensity_shuttle_formats(),
+           devices.get_default_intensity_shuttle_formats(), "intensity shuttle formats")
+    for code in (*devices.FORMAT_CODE_MAP, "nope"):
+        assert devices.map_format_code(code) == jax_devices.map_format_code(code)
+    assert devices.ffmpeg_path() == jax_devices.ffmpeg_path()
+    assert devices.get_decklink_devices() == jax_devices.get_decklink_devices()
+    assert devices.get_decklink_formats("DeckLink") == jax_devices.get_decklink_formats("DeckLink")
+    assert devices.test_device_connection("DeckLink") == \
+        jax_devices.test_device_connection("DeckLink")
+
+    frames = [{"frameNum": i, "metrics": {"vmaf": float(i)}} for i in range(13)]
+    for res in (results, {"vmaf_score": 50.0, "raw_results": {"frames": frames}}):
+        metas = []
+        for name, m in (("jax", jax_store), ("port", results_store)):
+            d = tmp_path / f"meta_{name}_{len(res)}"
+            d.mkdir()
+            with open(m.write_compact_metadata(res, str(d), extra={"k": 1})) as f:
+                metas.append({k: v for k, v in json.load(f).items() if k != "saved_at"})
+        assert metas[0] == metas[1]
+
+    fms = [m.FileManager(base_dir=str(tmp_path / "fm")) for m in (jax_utils, utils)]
+    assert fms[0].get_test_dir("a b/c", "20260101_000000") == \
+        fms[1].get_test_dir("a b/c", "20260101_000000")
+    for fm in fms:
+        fm.cleanup_temp_files()
+    assert colorspace._KR_KB == jax_cs._KR_KB
+    for st in colorspace._KR_KB:
+        _equal(jax_cs._matrix(st), colorspace._matrix(st), f"colorspace._matrix({st})")
+
+
+def test_options_manager_copy(tmp_path, monkeypatch):
     """The settings store: the same defaults, the same file read back the
-    same way by both (old files backfilled with newer keys), and every
-    method but the four device-discovery ones, which call the capture
-    backends (app/devices.py) that the port does not have."""
+    same way by both (old files backfilled with newer keys), the same
+    methods, and the device-discovery ones giving the same answers."""
     from pqa2_tpu.app import options_manager as jax_om
     from pqa2_tpu_torch.app import options_manager as port_om
 
     _equal(jax_om.default_settings(), port_om.default_settings(), "default_settings")
-    left_out = {"get_decklink_devices", "get_decklink_formats", "test_device_connection",
-                "get_ffmpeg_path"}
     jax_methods = {k for k in vars(jax_om.OptionsManager) if not k.startswith("__")}
     port_methods = {k for k in vars(port_om.OptionsManager) if not k.startswith("__")}
-    assert port_methods == jax_methods - left_out
+    assert port_methods == jax_methods
     old = {"vmaf": {"feature_precision": "integer_fast", "pool_method": "min"},
            "tpu": {"chunk_size": 8}}
     for name in ("jax", "port"):
@@ -266,3 +339,17 @@ def test_options_manager_copy(tmp_path):
     assert b.get_setting("vmaf", "feature_precision") == "integer_fast"
     assert b.get_setting("tpu", "chunk_size") == 8
     assert b.get_setting("tpu", "profile_dir") == a.get_setting("tpu", "profile_dir") == ""
+    for name in ("get_decklink_devices", "get_ffmpeg_path"):
+        assert getattr(b, name)() == getattr(a, name)(), name
+    for name in ("get_decklink_formats", "test_device_connection"):
+        assert getattr(b, name)("Intensity Shuttle") == getattr(a, name)("Intensity Shuttle")
+    from pqa2_tpu.io import ffmpeg_pipe as jax_pipe
+    from pqa2_tpu_torch.io import ffmpeg_pipe
+
+    for pipe in (jax_pipe, ffmpeg_pipe):  # a configured path is installed there
+        monkeypatch.setattr(pipe, "_configured", dict(pipe._configured))
+    monkeypatch.delenv("PQA2_FFMPEG", raising=False)
+    for m in (a, b):
+        m.update_setting("paths", "ffmpeg_path", str(tmp_path / "ffmpeg"))
+    assert b.get_ffmpeg_path() == a.get_ffmpeg_path() == str(tmp_path / "ffmpeg")
+    assert ffmpeg_pipe.resolve_ffmpeg() == jax_pipe.resolve_ffmpeg() == str(tmp_path / "ffmpeg")
