@@ -76,6 +76,22 @@ any failure raises and the exit code is 1):
      pass's ms per 64-frame chunk, the phase correlation's ms per 32 frames
      and the shifts it estimates on the blurred loops rolled by (2, 6) are
      printed.
+     Then the desktop window (the gui phase): tests/test_torch_gui.py's
+     driver in a child interpreter under the PyQt5 stub
+     (tests/support/qt_stub.py) builds ``MainWindow`` through
+     ``pqa2_tpu_torch.main.main(["--device", "cuda"])``, analyses the
+     workflow pair's reference in the Setup tab, hands the capture over,
+     runs the Analysis tab with ``vmaf_v0.6.1`` over the whole clip and
+     checks the Results tab's display, exports and history: its alignment
+     and every per-frame value must equal the workflow phase's in every
+     bit, and its launches must be the workflow's plus the one log2 audit
+     of a fresh process; ``python -m pqa2_tpu_torch.main`` without PyQt5
+     must exit 2 with the CLI pointer and log ``cuda_devices: True``.
+     Then the trace (``tpu.profile_dir``): ``analyze_videos`` on the slice
+     pair with the setting writes one torch.profiler trace holding the
+     ``vmaf_score`` range and the integer VIF, integer ADM and SSIM
+     kernels, its scores the slice run's in every bit, and the same call
+     without the setting writes none; both runs' seconds are printed.
      Then the scoring service (``ScoringService(device="cuda")`` with its
      warmup and an HTTP server on a free port): three jobs over HTTP on the
      slice pair (the default, ``vmaf_float_v0.6.1`` at
@@ -898,6 +914,7 @@ def phase_slice(torch, device, results, card, profile_dir=None):
     for k in (*INTEGER_KERNELS, "ssim_sse_plane"):
         results[k]["launches"] = counts[k]
     int_scores = exact.last_scores
+    slices["integer"]["scores"] = int_scores
 
     # Frames 0 and 32 (a chunk boundary) against the numpy oracles, on the
     # unrounded features of the run (the JSON rounds to 6 decimals).
@@ -1127,7 +1144,9 @@ def phase_workflow(torch, device, card, profile_dir=None, h=1080, w=1920,
     """Phase 3, the decode-once workflow: run_combined_workflow on the card
     against the CPU's alignment, analyze_frames on the chosen window and the
     two-pass path; the statistics pass and the phase correlation against
-    the CPU's; motion compensation on a rolled capture."""
+    the CPU's; motion compensation on a rolled capture. Returns what the
+    gui phase is held to: the pair's paths, the alignment (paths aside),
+    the per-frame arrays, the launches and the warm runs' seconds."""
     import numpy as np
 
     from pqa2_tpu_torch.align.motioncomp import _phase_corr_surface, estimate_shifts
@@ -1237,6 +1256,8 @@ def phase_workflow(torch, device, card, profile_dir=None, h=1080, w=1920,
     log(f"[times] workflow {w}x{h} ({len(source)}-frame capture, {n_ref}-frame reference, "
         f"{n} frames scored with PSNR+SSIM): first run {secs:.3f} s, warm runs "
         + ", ".join(f"{t:.3f}" for t in warm) + f" s [{card}]")
+    record = {"ref": ref_path, "cap": cap_path, "alignment": without_paths(res["alignment"]),
+              "per_frame": per_frame(scores), "counts": counts, "warm": warm}
     if profile_dir:
         profile_run(torch, lambda: workflow(cap_path), profile_dir, card, "workflow_warm_run")
 
@@ -1306,6 +1327,141 @@ def phase_workflow(torch, device, card, profile_dir=None, h=1080, w=1920,
         f"(frames {np.flatnonzero(other).tolist()[:20]}); shifts and counts "
         f"{[(tuple(v), int(k)) for v, k in zip(values.tolist(), counts)]}")
     del ref, loop
+    return record
+
+
+GUI_DRIVER = os.path.join(HERE, "tests", "test_torch_gui.py")
+
+
+def phase_gui(torch, card, workflow):
+    """The desktop window on the card: tests/test_torch_gui.py's driver in a
+    child interpreter under the PyQt5 stub (tests/support/qt_stub.py), so
+    this process imports no PyQt5. It builds the window through
+    ``pqa2_tpu_torch.main.main(["--device", "cuda"])``, analyses the
+    workflow phase's reference in the Setup tab, hands its capture over and
+    runs the Analysis tab with vmaf_v0.6.1 over the whole clip. Its
+    alignment and every per-frame value must equal the workflow phase's
+    ``run_combined_workflow(device="cuda")``, and its launches the
+    workflow's plus the fresh process's one log2 audit. Then
+    ``python -m pqa2_tpu_torch.main`` without the stub: exit 2 and the CLI
+    pointer where PyQt5 is missing, and the card in its state checks."""
+    import importlib.util
+
+    import numpy as np
+
+    gdir = os.path.join(WORK_DIR, "gui")
+    os.makedirs(gdir, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=HERE, APPDATA=os.path.join(gdir, "appdata"))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, GUI_DRIVER, "--device", "cuda", "--ref",
+                          workflow["ref"], "--cap", workflow["cap"]], cwd=gdir, env=env,
+                         capture_output=True, text=True, timeout=600)
+    child_secs = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"the window driver failed (rc={out.returncode}):\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-6000:]}")
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    if got["alignment"] != json.loads(json.dumps(workflow["alignment"])):
+        raise AssertionError(f"window alignment {got['alignment']} != the workflow's "
+                             f"{workflow['alignment']}")
+    arrays = {k: np.array(v["values"], np.float64).astype(v["dtype"])
+              for k, v in got["per_frame"].items()}
+    k = check_same_bits("window vs run_combined_workflow", arrays, workflow["per_frame"])
+    want = dict(workflow["counts"])
+    want["log2_table_audit"] += 1  # the child is a fresh process: its first integer clip
+    expect_counts(got["launches"], "window", want)
+    log(f"[gui] MainWindow(device='cuda') through main(['--device', 'cuda']) under the PyQt5 "
+        f"stub: alignment equal to the workflow phase's (ref {got['alignment']['ref_range']}, "
+        f"capture {got['alignment']['cap_range']}); {k} per-frame arrays (features, VMAF, "
+        f"PSNR, SSIM) over {got['frames']} frames equal to run_combined_workflow's in every "
+        f"bit; Results tab shows {got['displayed']!r}; CSV, HTML, metadata and history "
+        f"checked, PDF {'written' if got['pdf'] else 'skipped (no matplotlib)'}")
+    log(f"[gui] launches in the Analysis run: {got['launches']} (the workflow phase's plus "
+        f"the fresh process's log2 audit)")
+    log(f"[times] gui: Setup tab reference analysis {got['setup_seconds']:.3f} s; Analysis "
+        f"tab run (thread start to join) {got['analysis_seconds']:.3f} s, its workflow "
+        f"{got['workflow_wall_seconds']:.3f} s, against the workflow phase's warm runs "
+        + ", ".join(f"{t:.3f}" for t in workflow["warm"])
+        + f" s; the child process {child_secs:.3f} s in all [{card}]")
+
+    if importlib.util.find_spec("PyQt5") is not None:
+        log("[gui] PyQt5 is installed here: the no-Qt entry point check does not apply")
+        return
+    mdir = os.path.join(WORK_DIR, "gui_main")
+    os.makedirs(mdir, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=HERE, APPDATA=os.path.join(mdir, "appdata"))
+    out = subprocess.run([sys.executable, "-m", "pqa2_tpu_torch.main"], cwd=mdir, env=env,
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 2 or "python -m pqa2_tpu_torch.cli --help" not in out.stderr:
+        raise AssertionError(f"python -m pqa2_tpu_torch.main without PyQt5: rc "
+                             f"{out.returncode}, stderr {out.stderr[-2000:]}")
+    with open(os.path.join(mdir, "appdata", "logs", "vmaf_app.log")) as f:
+        checks = [line for line in f.read().splitlines() if "application state checks:" in line]
+    if not checks or "'cuda_devices': True" not in checks[-1]:
+        raise AssertionError(f"the state checks do not see the card: {checks}")
+    log(f"[gui] python -m pqa2_tpu_torch.main without PyQt5: exit 2 with the CLI pointer; "
+        f"logged {checks[-1].split(' - ')[-1]}")
+
+
+def phase_trace(torch, card, ref_path, dist_path, slices):
+    """F7: ``tpu.profile_dir`` makes ``analyze_videos`` write one
+    torch.profiler trace of its scoring on the card (the ``vmaf_score``
+    range and the integer VIF, integer ADM and SSIM kernels), with the
+    slice run's scores in every bit; without it, no trace. Run outside any
+    --profile pass (torch.profiler does not nest)."""
+    import glob
+
+    from pqa2_tpu_torch.app.options_manager import OptionsManager
+    from pqa2_tpu_torch.app.vmaf_analyzer import VMAFAnalyzer
+
+    tdir = os.path.join(WORK_DIR, "trace")
+    again = os.path.join(WORK_DIR, "trace_again")
+    for d in (tdir, again):
+        for old in glob.glob(os.path.join(d, "*")):
+            os.remove(old)
+    secs = {}
+    # The second traced run (into its own directory) parts the profiler's
+    # one-time start in the process from its cost per run.
+    for name, profile_dir in (("traced", tdir), ("untraced", ""), ("traced again", again)):
+        tag = name.replace(" ", "_")
+        om = OptionsManager(os.path.join(WORK_DIR, f"settings_{tag}.json"), save_debounce_s=0)
+        om.update_setting("tpu", "profile_dir", profile_dir)
+        a = VMAFAnalyzer(om, device="cuda")
+        a.set_output_directory(os.path.join(WORK_DIR, "out"))
+        a.set_test_name(f"trace_{tag}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = a.analyze_videos(ref_path, dist_path, model="vmaf_v0.6.1")
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        if res is None:
+            raise AssertionError(f"the {name} analyze_videos failed")
+        k = check_same_bits(f"{name} run vs the slice run", per_frame(a.last_scores),
+                            per_frame(slices["integer"]["scores"]))
+        traces = glob.glob(os.path.join(tdir, "*"))
+        written = glob.glob(os.path.join(WORK_DIR, "**", "*.pt.trace.json"), recursive=True)
+        if len(traces) != 1 or not traces[0].endswith(".pt.trace.json") or \
+                len(written) != 1 + (name == "traced again"):
+            raise AssertionError(f"after the {name} run: {traces} in the trace directory, "
+                                 f"{written} in all")
+    with open(traces[0]) as f:
+        events = json.load(f)
+    events = events.get("traceEvents", events) if isinstance(events, dict) else events
+    ranges = [e for e in events if e.get("name") == "vmaf_score"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    found = {want: sum(want in n for n in kernels)
+             for want in ("vif_int_scale_kernel", "adm_int_level_kernel", "ssim_sse_kernel")}
+    if not ranges or not all(found.values()):
+        raise AssertionError(f"trace {traces[0]}: {len(ranges)} vmaf_score ranges, "
+                             f"kernel events {found}")
+    log(f"[trace] tpu.profile_dir: one trace {os.path.basename(traces[0])} "
+        f"({os.path.getsize(traces[0])} bytes) with the vmaf_score range and kernel events "
+        f"{found} of {len(kernels)}; {k} per-frame arrays of the traced and the untraced run "
+        f"equal to the slice run's in every bit; without the setting no trace was written")
+    log(f"[times] trace: analyze_videos vmaf_v0.6.1 on the slice pair, traced "
+        f"{secs['traced']:.3f} s (the process's first profiler), untraced "
+        f"{secs['untraced']:.3f} s, traced again {secs['traced again']:.3f} s [{card}]")
 
 
 def http_json(conn, method, path, body=None):
@@ -1820,7 +1976,10 @@ def main(argv=None) -> int:
                    "bound_ms": None, "bound_by": None, "library_ms": None}
                for k, (src, rep) in KERNELS.items()}
     ref_path, dist_path, slices = phase_slice(torch, device, results, card, args.profile)
-    phase_workflow(torch, device, card, args.profile)
+    workflow = phase_workflow(torch, device, card, args.profile)
+    phase_gui(torch, card, workflow)
+    del workflow
+    phase_trace(torch, card, ref_path, dist_path, slices)
     phase_serve(torch, device, card, ref_path, dist_path, slices, args.profile)
     phase_batch(torch, device, card, ref_path, dist_path, slices)
     phase_capture(torch, device, card)

@@ -25,7 +25,10 @@ Layout mirrors ``pqa2_tpu`` so each module's counterpart is easy to find:
   app/       ``VMAFAnalyzer`` with the reference's results dict/artifacts,
              the aligner, the decode-once workflow, the scoring service,
              the capture manager, the results store and reports
-  utils/     copies of ``signals`` and ``profiling``
+  ui/        the PyQt5 six-tab desktop window over the app layer
+             (``python -m pqa2_tpu_torch.main``)
+  utils/     copies of ``signals`` and ``logs``, and ``profiling``
+             (torch.profiler traces)
   csrc/      CUDA sources
 
 Every public entry point takes an explicit ``device``. Kernel wrappers use
@@ -36,3 +39,25 @@ framework-free modules it needs.
 """
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    """Lazy top-level convenience API (keeps bare import light: no torch
+    pipeline and no app module is imported until a name is asked for)."""
+    if name in ("score_clip", "score_planes", "ClipScores"):
+        from pqa2_tpu_torch.pipeline import scoring
+
+        return getattr(scoring, name)
+    if name == "stream_score":
+        from pqa2_tpu_torch.pipeline.streaming import stream_score
+
+        return stream_score
+    if name in ("VMAFAnalyzer", "BookendAligner", "ReferenceAnalyzer"):
+        import pqa2_tpu_torch.app as app
+
+        return getattr(app, name)
+    if name == "get_model":
+        from pqa2_tpu_torch.models.registry import get_model
+
+        return get_model
+    raise AttributeError(f"module 'pqa2_tpu_torch' has no attribute {name!r}")

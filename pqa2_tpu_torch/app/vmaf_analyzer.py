@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from pqa2_tpu_torch.io.video import probe_video
-from pqa2_tpu_torch.utils.profiling import ThroughputMeter
+from pqa2_tpu_torch.utils.profiling import ThroughputMeter, trace
 from pqa2_tpu_torch.utils.signals import Signal
 from pqa2_tpu_torch.pipeline.json_out import write_vmaf_json
 from pqa2_tpu_torch.pipeline.scoring import ClipScores, pool_metric, score_planes
@@ -109,7 +109,9 @@ class VMAFAnalyzer:
     def set_options_from_manager(self, options_manager) -> None:
         """Model, pool method, feature subsample and precision, PSNR/SSIM
         from the ``vmaf`` settings; the chunk size from ``tpu.chunk_size``
-        (the settings file's category name)."""
+        (the settings file's category name). ``tpu.profile_dir`` is read at
+        each ``analyze_videos``: a directory there gets a torch.profiler
+        trace of the scoring (``utils.profiling.trace``)."""
         self.options_manager = options_manager
         vmaf = options_manager.get_setting("vmaf") or {}
         self.model = vmaf.get("default_model", self.model)
@@ -182,24 +184,31 @@ class VMAFAnalyzer:
             status_cb=self.status_update.emit,
         )
 
+        profile_dir = None
+        if self.options_manager is not None:
+            profile_dir = (self.options_manager.get_setting("tpu") or {}).get(
+                "profile_dir"
+            )
+
         def on_chunk(k):
             if self._abort.is_set():
                 raise InterruptedError("analysis terminated")
             meter.add(k)
 
-        scores = stream_score(
-            reference_path,
-            distorted_path,
-            model=model,
-            chunk_size=self.chunk_size,
-            max_frames=max_frames,
-            with_psnr=self.psnr_enabled,
-            with_ssim=self.ssim_enabled,
-            frame_cb=on_chunk,
-            subsample=self.feature_subsample,
-            precision=self.feature_precision,
-            device=self.device,
-        )
+        with trace(profile_dir, label="vmaf_score", device=self.device):
+            scores = stream_score(
+                reference_path,
+                distorted_path,
+                model=model,
+                chunk_size=self.chunk_size,
+                max_frames=max_frames,
+                with_psnr=self.psnr_enabled,
+                with_ssim=self.ssim_enabled,
+                frame_cb=on_chunk,
+                subsample=self.feature_subsample,
+                precision=self.feature_precision,
+                device=self.device,
+            )
         self.analysis_progress.emit(80)
         return self._finalize(
             scores, fps=fps, model=model,

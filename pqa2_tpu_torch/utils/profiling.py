@@ -1,21 +1,53 @@
-# Copy of pqa2_tpu/utils/profiling.py with its imports pointed at this package:
-# the port keeps its own copy and imports nothing of pqa2_tpu.
-"""Progress metering.
+# Port of pqa2_tpu/utils/profiling.py: ``trace`` runs torch.profiler where the
+# JAX module runs jax.profiler; ``ThroughputMeter`` is the JAX module's.
+"""Tracing / profiling hooks.
 
 The reference's observability is log-scraped ffmpeg progress
-(SURVEY.md section 5.1). Here: a throughput meter that feeds the same
-per-frame progress signal contract the UI expects. (The JAX package's
-``trace`` context, a jax.profiler capture, has no counterpart: the port is
-profiled with torch.profiler, see chip_smoke.py --profile.)
+(SURVEY.md section 5.1). Here: torch.profiler trace capture around scoring
+regions (the counterpart of the JAX package's jax.profiler ``trace``) + a
+throughput meter that feeds the same per-frame progress signal contract the
+UI expects.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
-from typing import Callable, Optional
+from typing import Callable, Iterator, Optional
 
 logger = logging.getLogger(__name__)
+
+
+@contextlib.contextmanager
+def trace(profile_dir: Optional[str] = None, label: str = "score",
+          device=None) -> Iterator[None]:
+    """Capture a torch.profiler trace when a directory is configured; no-op
+    otherwise. The region runs under ``record_function(label)``, with CUDA
+    activity when ``device`` is a card, and its Chrome trace
+    (``*.pt.trace.json``, viewable in TensorBoard/Perfetto) is written into
+    ``profile_dir``. A profiler error propagates (torch.profiler refuses to
+    start inside another active profiler)."""
+    if not profile_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import (
+        ProfilerActivity,
+        profile,
+        record_function,
+        tensorboard_trace_handler,
+    )
+
+    activities = [ProfilerActivity.CPU]
+    if device is not None and torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    logger.info("capturing torch.profiler trace to %s", profile_dir)
+    # One profiling cycle: acc_events only spares the per-cycle warning.
+    with profile(activities=activities, acc_events=True,
+                 on_trace_ready=tensorboard_trace_handler(profile_dir)):
+        with record_function(label):
+            yield
 
 
 class ThroughputMeter:

@@ -3,7 +3,8 @@
 pqa2_tpu_torch imports nothing of pqa2_tpu: it keeps copies of the numpy
 oracles (``golden/``), the model loader and registry with the nine packaged
 ``data/*.npz`` files, the video readers and the capture-file repair
-(``io/``), two utilities, the settings store (``app/options_manager.py``),
+(``io/``), three utilities (``signals``, ``profiling``'s meter, ``logs``), the
+settings store (``app/options_manager.py``) and its options schema,
 the report generator (``app/report_generator.py``), the results store, the
 capture-device discovery and the capture manager (``app/results_store.py``,
 ``app/devices.py``, ``app/capture.py``), and the colorspace matrices. Here
@@ -29,7 +30,7 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 GOLDEN = ("filters", "fixedpoint", "log2lut", "vif_int", "motion_int", "adm",
-          "adm_int", "ssim", "vif", "motion")
+          "adm_int", "ssim", "vif", "motion", "psnr")
 MODELS = ("vmaf_v0.6.1", "vmaf_v0.6.1neg", "vmaf_4k_v0.6.1", "vmaf_4k_v0.6.1neg",
           "vmaf_b_v0.6.3", "vmaf_float_v0.6.1", "vmaf_float_v0.6.1neg",
           "vmaf_float_4k_v0.6.1", "vmaf_float_b_v0.6.3")
@@ -113,6 +114,12 @@ ORACLES = {
     "ssim_plane": ("ssim", lambda m, r, d: m.ssim_plane(r[2], d[2])),
     "log2_q11": ("log2lut", lambda m, r, d: m.log2_q11(
         r.astype(np.uint64).ravel() * 4099 + 32768)),
+    "psnr_frame": ("psnr", lambda m, r, d: m.psnr_frame(
+        {"y": r[0], "u": r[1, ::2, ::2], "v": r[2, ::2, ::2]},
+        {"y": d[0], "u": d[1, ::2, ::2], "v": r[2, ::2, ::2]})),
+    "psnr_pooled": ("psnr", lambda m, r, d: m.psnr_pooled(
+        [m.psnr_frame({p: a for p in "yuv"}, {p: b for p in "yuv"})
+         for a, b in ((r[0], d[0]), (r[1], r[1]), (r[2], d[2]))])),
 }
 
 
@@ -210,6 +217,8 @@ def test_utils_copies(tmp_path, monkeypatch):
     from pqa2_tpu_torch.utils.profiling import ThroughputMeter
     from pqa2_tpu_torch.utils.signals import Signal
 
+    _logs_copy(tmp_path, monkeypatch)
+
     seen, progress = [], []
     s = Signal(int, name="x")
     s.connect(seen.append)
@@ -256,6 +265,41 @@ def test_utils_copies(tmp_path, monkeypatch):
         assert (tmp_path / f"jax.{ext}").read_bytes() == (tmp_path / f"port.{ext}").read_bytes()
     assert "2026-01-02 03:04:05" in (tmp_path / "port.html").read_text()
     _app_copies(tmp_path, results)
+
+
+def _logs_copy(tmp_path, monkeypatch):
+    """utils/logs.py: the same functions, handlers, format and file name;
+    only its directory (``~/.pqa2_tpu_torch``) and logger name differ."""
+    import inspect
+    import logging
+
+    from pqa2_tpu.utils import logs as jax_logs
+    from pqa2_tpu_torch.utils import logs
+
+    public = {k for k in vars(jax_logs) if not k.startswith("_")}
+    assert public == {k for k in vars(logs) if not k.startswith("_")}
+    for fn in ("default_log_dir", "setup_logging"):
+        assert inspect.signature(getattr(logs, fn)) == inspect.signature(getattr(jax_logs, fn))
+    src = inspect.getsource(logs.setup_logging).replace('"pqa2_tpu_torch"', '"pqa2_tpu"')
+    assert src == inspect.getsource(jax_logs.setup_logging)
+    monkeypatch.setenv("APPDATA", str(tmp_path / "appdata"))
+    assert logs.default_log_dir() == jax_logs.default_log_dir()
+    monkeypatch.delenv("APPDATA")
+    root = logging.getLogger()
+    saved = (root.handlers[:], root.level)
+    try:
+        formats = []
+        for name, m in (("jax", jax_logs), ("port", logs)):
+            m.setup_logging(log_dir=str(tmp_path / f"logs_{name}"))
+            formats.append([(type(h).__name__, h.formatter._fmt) for h in root.handlers])
+            assert (tmp_path / f"logs_{name}" / "vmaf_app.log").exists()
+        assert formats[0] == formats[1]
+    finally:
+        for h in root.handlers:
+            if h not in saved[0]:
+                h.close()
+        root.handlers[:] = saved[0]
+        root.setLevel(saved[1])
 
 
 def _app_copies(tmp_path, results):
@@ -339,6 +383,7 @@ def test_options_manager_copy(tmp_path, monkeypatch):
     assert b.get_setting("vmaf", "feature_precision") == "integer_fast"
     assert b.get_setting("tpu", "chunk_size") == 8
     assert b.get_setting("tpu", "profile_dir") == a.get_setting("tpu", "profile_dir") == ""
+    _options_schema_copy()
     for name in ("get_decklink_devices", "get_ffmpeg_path"):
         assert getattr(b, name)() == getattr(a, name)(), name
     for name in ("get_decklink_formats", "test_device_connection"):
@@ -353,3 +398,25 @@ def test_options_manager_copy(tmp_path, monkeypatch):
         m.update_setting("paths", "ffmpeg_path", str(tmp_path / "ffmpeg"))
     assert b.get_ffmpeg_path() == a.get_ffmpeg_path() == str(tmp_path / "ffmpeg")
     assert ffmpeg_pipe.resolve_ffmpeg() == jax_pipe.resolve_ffmpeg() == str(tmp_path / "ffmpeg")
+
+
+def _options_schema_copy():
+    """ui/controllers/options_schema.py: the same fields (keys, kinds,
+    bounds, tabs) in the same order, so one settings file binds in both;
+    only the labels of the ``tpu`` category differ."""
+    import dataclasses
+
+    from pqa2_tpu.ui.controllers import options_schema as jax_schema
+    from pqa2_tpu_torch.ui.controllers import options_schema as schema
+
+    assert schema.TABS == jax_schema.TABS
+    assert len(schema.FIELDS) == len(jax_schema.FIELDS)
+    for a, b in zip(jax_schema.FIELDS, schema.FIELDS):
+        da, db = dataclasses.asdict(a), dataclasses.asdict(b)
+        if a.category != "tpu":
+            assert da == db, (da, db)
+        da.pop("label"), db.pop("label")
+        assert da == db, (da, db)
+    for tab in schema.TABS:
+        assert [(f.category, f.key) for f in schema.fields_for_tab(tab)] == \
+            [(f.category, f.key) for f in jax_schema.fields_for_tab(tab)]

@@ -1,15 +1,16 @@
 """pqa2_tpu_torch stands alone and never hides a missing card.
 
-  * a fresh interpreter imports the package and every module of it with
-    neither ``jax`` nor ``pqa2_tpu`` (nor any submodule of either) in
-    ``sys.modules``;
+  * a fresh interpreter imports the package and every module of it (the
+    window's under the PyQt5 stub) with neither ``jax`` nor ``pqa2_tpu``
+    (nor any submodule of either) in ``sys.modules``;
   * no source file of the package, and not chip_smoke.py, imports jax or
     pqa2_tpu (the port keeps its own copies of what it needs);
   * a kernel wrapper given a tensor that is neither on the CPU (plain
     version) nor on a CUDA device raises, without computing on the CPU;
   * asking for CUDA on a machine without a card raises (no CPU fallback),
-    and chip_smoke.py exits non-zero and prints no result there, as it does
-    in a directory without the repository.
+    the desktop window's runs on the card fail through its tabs' error
+    slots, and chip_smoke.py exits non-zero and prints no result there, as
+    it does in a directory without the repository.
 """
 
 import os
@@ -38,7 +39,12 @@ def _env():
 
 
 def test_port_imports_without_jax():
+    # The window's modules import PyQt5, absent here: the functional stub
+    # stands in for it (tests/support/qt_stub.py).
     code = ("import importlib, sys\n"
+            f"sys.path.insert(0, {str(ROOT / 'tests' / 'support')!r})\n"
+            "import qt_stub\n"
+            "qt_stub.install()\n"
             f"for m in {MODULES!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k in ('jax', 'pqa2_tpu')\n"
@@ -53,7 +59,8 @@ def test_port_imports_without_jax():
     # The service, batch and capture modules are reached by both scans.
     assert {f"pqa2_tpu_torch.{m}" for m in (
         "analyzer", "ops.colorspace", "pipeline.batch", "app.service", "app.results_store",
-        "app.utils", "app.capture", "app.devices", "io.repair")} <= set(MODULES)
+        "app.utils", "app.capture", "app.devices", "io.repair", "ui.main_window",
+        "main")} <= set(MODULES)
 
 
 def _imports_forbidden(stmt: str) -> bool:
@@ -164,6 +171,7 @@ def test_cuda_requests_raise_without_a_card(entry, tmp_path):
         assert a.analyze_videos(clip, clip) is None
         assert failed and "torch.cuda.is_available() is False" in failed[0]
         assert a.last_scores is None
+        _window_analysis_without_a_card(clip, tmp_path)
         return
     fn = {"require_cuda": lambda: require_cuda("cuda"),
           "library": _build.library,
@@ -171,6 +179,42 @@ def test_cuda_requests_raise_without_a_card(entry, tmp_path):
           "stream_score": lambda: stream_score(clip, clip, device="cuda")}[entry]
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         fn()
+
+
+def _window_analysis_without_a_card(clip, tmp_path):
+    """``MainWindow(device="cuda")`` (the default) builds without a card,
+    but its Setup and Analysis runs fail through the tabs' error slots
+    (the Analysis tab's is the one its workflow's analysis_failed feeds),
+    with the analyzer's message, and nothing is scored on the CPU. In a
+    child under the PyQt5 stub (tests/support/qt_stub.py)."""
+    code = f"""
+import glob, os, sys
+sys.path.insert(0, {str(ROOT / 'tests' / 'support')!r})
+import qt_stub
+qt_stub.install()
+from pqa2_tpu_torch.app import CaptureManager, FileManager, OptionsManager
+from pqa2_tpu_torch.ui.main_window import MainWindow
+om = OptionsManager("settings.json", save_debounce_s=0)
+win = MainWindow(CaptureManager(options_manager=om), FileManager("results"), om)
+assert str(win.device) == "cuda"
+win.setup_tab.analyze_reference({clip!r})
+assert win.setup_tab._thread is None and win.reference_info is None
+win.reference_info = {{"path": {clip!r}}}
+win.handle_capture_finished(True, {clip!r})
+win.analysis_tab.run_combined_analysis()
+log = win.analysis_tab.log_pane.toPlainText().splitlines()
+assert log[-1].startswith("ERROR: VMAF analysis error: "), log
+assert "torch.cuda.is_available() is False" in log[-1], log
+assert win.analysis_tab._workflow_thread is None and win.analysis_tab.run_btn.isEnabled()
+assert win.results_tab.current_results is None
+assert not glob.glob("**/*_vmaf.json", recursive=True)
+win.close()
+print("window refused")
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "window refused" in out.stdout
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
