@@ -11,7 +11,9 @@ any failure raises and the exit code is 1):
 
   1. the card (nvidia-smi name and power limit), torch's CUDA version, and
      the nvcc build of ``pqa2_tpu_torch/csrc`` (one nvcc per source, all
-     started together; its time when it built);
+     started together; its time when it built), then the g++ build of the
+     native frame pump (``csrc/framepump.cpp``), which every later phase's
+     y4m reads go through;
   2. every kernel against its plain PyTorch version on the card, at the
      main paths' shapes: a 34-frame 1080p luma chunk (32 core frames and
      both halos; integer VIF on the uint8 luma as the main path hands it
@@ -115,7 +117,29 @@ any failure raises and the exit code is 1):
      policy printed) and ``run_combined_workflow(device="cuda")`` must
      align the capture as ``BookendAligner(device="cpu")`` does and score
      it to finite values; the colorspace conversions on the card must give
-     the CPU's bits;
+     the CPU's bits.
+     Then multi-device scoring (the parallel phase), on meshes whose
+     entries share cuda:0: ``score_clip_sharded`` on 4 and 5 entries (the
+     5-entry ranges 15/15/14/14/14) for each of the three families must give
+     the slice runs' per-frame features and VMAF in every bit, each run's
+     launches the feature kernels' per chunk times its chunks and nothing
+     else; ``make_sharded_scorer`` on a 2x2 mesh with PSNR/SSIM must give
+     the integer slice's psnr_y and ssim_y in every bit; a 10-bit
+     1920x1080 pair of 24 frames (the slice's codes x 4 with +-1 noise)
+     through ``score_clip_sharded`` must equal single-device ``score_clip``
+     in every bit; the batch phase's three rungs through
+     ``run_batch_suite(mesh=)`` on 4 entries must have no error row, give
+     each rung's per-frame JSON values without a mesh, and decode the
+     reference once (3 decodes, 3 luma cache hits); ``python -m
+     pqa2_tpu_torch.cli dryrun --devices 4`` in a child must exit 0 with its
+     equality line; ``multihost.initialize()`` from ``MASTER_ADDR``/
+     ``MASTER_PORT`` joins an NCCL group of one (an all_reduce,
+     ``gather_summaries``, ``shard_clip_list``, ``destroy_process_group``);
+     ``pipeline.streaming._open_reader`` must give the native frame pump's
+     reader, whose frames equal ``VideoReader``'s byte for byte on both
+     slice files, and ``write_trim`` through the native writer must write
+     the Python writer's bytes. Each sharded run's seconds are printed
+     beside the single-device run's, and the phase's total;
   4. CUDA-event times of each kernel against its plain version at 1080p,
      each kernel's bound (the least time the card could take for the same
      work), and each slice's frames per second: its first run and three
@@ -949,6 +973,7 @@ def phase_slice(torch, device, results, card, profile_dir=None):
     expect_counts(counts, model, {k: 0 for k in (*INTEGER_KERNELS, *FAST_KERNELS)})
     for k in FLOAT_KERNELS:
         results[k]["launches"] = counts[k]
+    slices["float"]["scores"] = flt.last_scores
     feats = flt.last_scores.features
     for i in (0, 32):
         vo = np.array(vif_features(ry[i], dy[i], variant="classic"))
@@ -983,6 +1008,7 @@ def phase_slice(torch, device, results, card, profile_dir=None):
     expect_counts(counts, label, {k: 0 for k in FLOAT_KERNELS})
     results["vif_int_scale_fast"]["launches"] = counts["vif_int_scale_fast"]
     fs = fast.last_scores
+    slices["integer_fast"]["scores"] = fs
     dfeat = max(float(np.max(np.abs(fs.features[k].astype(np.float64)
                                     - int_scores.features[k]))) for k in fs.features)
     dvmaf = np.abs(fs.vmaf.astype(np.float64) - int_scores.vmaf)
@@ -1736,6 +1762,7 @@ def phase_batch(torch, device, card, ref_path, dist_path, slices, n=72, h=1080, 
     log(f"[times] batch suite, 3 rungs of {n} frames 1080p: aggregate_fps "
         f"{summary['aggregate_fps']}, wall {summary['wall_seconds']} s ({secs:.3f} s with the "
         f"summary written) [{card}]")
+    return spec, summary
 
 
 def phase_capture(torch, device, card, h=540, w=960, n_ref=60):
@@ -1831,6 +1858,253 @@ def phase_capture(torch, device, card, h=540, w=960, n_ref=60):
         f"{out['analysis']['frame_count']} frames scored, vmaf "
         f"{out['analysis']['vmaf_score']:.4f} (per frame {vmaf.min():.3f}..{vmaf.max():.3f}); "
         f"{secs:.3f} s; launches {counts} [{card}]")
+
+
+# Per family: (model, precision, the kernels that score its features).
+PARALLEL_FAMILIES = {
+    "integer": ("vmaf_v0.6.1", None, ("vif_int_scale", "adm_int_level")),
+    "float": ("vmaf_float_v0.6.1", None, FLOAT_KERNELS),
+    "integer_fast": ("vmaf_v0.6.1", "integer_fast", ("vif_int_scale_fast", "adm_int_level")),
+}
+
+
+def decode_luma(path):
+    """(N, H, W) luma of a y4m file, in its source dtype."""
+    import numpy as np
+
+    from pqa2_tpu_torch.io.video import VideoReader
+
+    with VideoReader(path) as r:
+        return np.stack([f["y"] for f in r])
+
+
+def check_scores_equal(label, got, want_vmaf, want_features):
+    """``got`` (a sharded scorer's dict) against single-device per-frame
+    arrays, in every bit."""
+    import numpy as np
+
+    pairs = [("vmaf", got["vmaf"], want_vmaf)]
+    pairs += [(k, got[k], v) for k, v in want_features.items()]
+    for nm, a, b in pairs:
+        if a.shape != b.shape or a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"{label}: {nm} differs from the single-device run")
+    return len(pairs)
+
+
+def expect_shard_counts(label, counts, per_chunk, chunks, kernels):
+    """The feature kernels of a sharded run launch ``per_chunk[k]`` times
+    per chunk; no other kernel runs (the log2 audit passed earlier)."""
+    want = {k: (per_chunk[k] * chunks if k in kernels else 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+
+
+def phase_parallel(torch, card, ref_path, dist_path, slices, ladder):
+    """Phase 3, multi-device scoring on one card (mesh entries that share
+    cuda:0, as JAX's virtual host mesh shares the host): the sharded
+    scorers against single-device scoring in every bit, a 10-bit pair at
+    full width, the sharded ladder, the dryrun subcommand, the multi-process
+    helpers over NCCL and the native frame pump."""
+    import numpy as np
+
+    from pqa2_tpu_torch.align import streamed
+    from pqa2_tpu_torch.io.native import NativeY4MReader
+    from pqa2_tpu_torch.io.video import VideoReader
+    from pqa2_tpu_torch.parallel import (
+        frame_sharding,
+        make_mesh,
+        make_sharded_scorer,
+        multihost,
+        score_clip_sharded,
+    )
+    from pqa2_tpu_torch.pipeline.batch import run_batch_suite
+    from pqa2_tpu_torch.pipeline.scoring import score_clip
+    from pqa2_tpu_torch.pipeline.streaming import _open_reader
+
+    t_phase = time.perf_counter()
+    ry, dy = decode_luma(ref_path), decode_luma(dist_path)
+    n = ry.shape[0]
+    slice_chunks = -(-n // 32)
+    mesh4 = make_mesh(devices=["cuda:0"] * 4)
+    mesh5 = make_mesh(devices=["cuda:0"] * 5)
+    sizes5 = [stop - start for _, start, stop in frame_sharding(mesh5).ranges(n)]
+    if sizes5 != [15, 15, 14, 14, 14]:
+        raise AssertionError(f"5-entry ranges {sizes5}")
+
+    # 1. Sharded scoring, three families, 4 and 5 entries.
+    for family, (model, precision, kernels) in PARALLEL_FAMILIES.items():
+        want = slices[family]["scores"]
+        per_chunk = {k: v // slice_chunks for k, v in slices[family]["counts"].items()}
+        single, single_s, single_counts = counted(torch, lambda: score_clip(
+            ry, dy, model=model, precision=precision, device="cuda"))
+        m = check_scores_equal(f"{family} single-device score_clip", {
+            "vmaf": single.vmaf, **single.features}, want.vmaf, want.features)
+        for mesh in (mesh4, mesh5):
+            k = len(mesh.entries)
+            out, secs, counts = counted(torch, lambda: score_clip_sharded(
+                ry, dy, mesh, model=model, precision=precision))
+            check_scores_equal(f"{family} score_clip_sharded {k} entries", out, want.vmaf,
+                               want.features)
+            if out["n_frames"] != n:
+                raise AssertionError(f"{family}: n_frames {out['n_frames']}")
+            expect_shard_counts(f"{family} {k} entries", counts, per_chunk, k, kernels)
+            log(f"[parallel] score_clip_sharded {family} ({model}) on {k} entries of cuda:0: "
+                f"{m} per-frame arrays (VMAF + features) equal to the slice run's in every "
+                f"bit; launches {counts}; {secs:.3f} s against single-device score_clip "
+                f"{single_s:.3f} s [{card}]")
+
+    # 2. The 2-D scorer with PSNR/SSIM: the slice's luma values.
+    want = slices["integer"]["scores"]
+    mesh22 = make_mesh(n_data=2, n_space=2, devices=["cuda:0"] * 4)
+    out, secs, counts = counted(torch, lambda: make_sharded_scorer(
+        mesh22, "vmaf_v0.6.1", with_psnr_ssim=True)(ry, dy))
+    m = check_scores_equal("2-D scorer", out, want.vmaf,
+                           {**want.features, "psnr_y": want.psnr["psnr_y"],
+                            "ssim_y": want.ssim["ssim_y"]})
+    per_chunk = {k: v // slice_chunks for k, v in slices["integer"]["counts"].items()}
+    per_chunk["ssim_sse_plane"] = 1
+    expect_shard_counts("2-D scorer", counts, per_chunk, 4,
+                        ("vif_int_scale", "adm_int_level", "ssim_sse_plane"))
+    log(f"[parallel] make_sharded_scorer on a 2x2 mesh of cuda:0 with PSNR/SSIM: {m} "
+        f"per-frame arrays (VMAF, features, psnr_y, ssim_y) equal to the slice run's in "
+        f"every bit; launches {counts}; {secs:.3f} s [{card}]")
+
+    # 3. A 10-bit pair at full width: the slice's frames x 4 with +-1 codes.
+    rng = np.random.default_rng(10)
+    r10 = np.clip(ry[:24].astype(np.int32) * 4 + rng.integers(-1, 2, ry[:24].shape), 0, 1023)
+    d10 = np.clip(dy[:24].astype(np.int32) * 4 + rng.integers(-1, 2, dy[:24].shape), 0, 1023)
+    r10, d10 = (r10 / 4.0).astype(np.float32), (d10 / 4.0).astype(np.float32)
+    single, single_s, _ = counted(torch, lambda: score_clip(r10, d10, bit_depth=10,
+                                                            device="cuda"))
+    out, secs, counts = counted(torch, lambda: score_clip_sharded(r10, d10, mesh4,
+                                                                 bit_depth=10))
+    m = check_scores_equal("10-bit 1080p", out, single.vmaf, single.features)
+    if not (np.all(np.isfinite(single.vmaf)) and 0.0 <= single.vmaf.min()
+            and single.vmaf.max() <= 100.0):
+        raise AssertionError(f"10-bit VMAF {single.vmaf.min()}..{single.vmaf.max()}")
+    log(f"[parallel] 10-bit 1920x1080, 24 frames, integer family: score_clip_sharded on 4 "
+        f"entries equal to single-device score_clip in every bit ({m} arrays; VMAF "
+        f"{single.vmaf.min():.3f}..{single.vmaf.max():.3f}); launches {counts}; {secs:.3f} s "
+        f"against {single_s:.3f} s [{card}]")
+    del r10, d10
+
+    # 4. The sharded ladder: the batch phase's three rungs on 4 entries.
+    spec, plain = ladder
+    plain_json = {r["name"]: r["json_path"] for r in plain["clips"]}
+    out_dir = os.path.join(WORK_DIR, "batch", "suite_sharded")
+    lines = []
+    summary, secs, counts = counted(torch, lambda: run_batch_suite(
+        spec, out_dir, mesh=mesh4, log=lines.append))
+    rows = summary["clips"]
+    if any("error" in r for r in rows) or len(rows) != 3 or summary["mesh_devices"] != 4:
+        raise AssertionError(f"sharded ladder: {summary}")
+    for r in rows:
+        with open(r["json_path"]) as f:
+            got = json.load(f)["frames"]
+        with open(plain_json[r["name"]]) as f:
+            plain = json.load(f)["frames"]
+        if len(got) != len(plain) or any(
+                g["metrics"][k] != p["metrics"][k] for g, p in zip(got, plain)
+                for k in g["metrics"]):
+            raise AssertionError(f"sharded ladder {r['name']}: per-frame values differ from "
+                                 f"the rung scored without a mesh")
+    decodes = sum(1 for ln in lines if ln.startswith("  decode: "))
+    hits = sum(1 for ln in lines if ln.startswith("  luma cache hit: "))
+    if decodes != 3 or hits != 3:
+        raise AssertionError(f"sharded ladder: {decodes} decodes, {hits} cache hits: {lines}")
+    per_chunk = {k: v // slice_chunks for k, v in slices["integer"]["counts"].items()}
+    expect_shard_counts("sharded ladder", counts, per_chunk, 3 * 4,
+                        ("vif_int_scale", "adm_int_level"))
+    log(f"[parallel] sharded ladder on 4 entries: no error rows; every rung's per-frame "
+        f"JSON values (VMAF and features) equal to its rung without a mesh; {decodes} "
+        f"decodes, {hits} luma cache hits (the reference decoded once); launches {counts}")
+    log(f"[times] sharded ladder, 3 rungs of {n} frames 1080p on 4 entries of cuda:0: "
+        f"aggregate_fps {summary['aggregate_fps']}, aggregate_fps_per_device "
+        f"{summary['aggregate_fps_per_device']} (per mesh entry), wall "
+        f"{summary['wall_seconds']} s [{card}]")
+
+    # 5. The dryrun subcommand in a fresh process.
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pqa2_tpu_torch.cli", "dryrun", "--devices",
+                           "4"], cwd=HERE, env=env, capture_output=True, text=True,
+                          timeout=600)
+    ok = [ln for ln in proc.stdout.splitlines() if ln.startswith("dryrun_multichip ok")]
+    if proc.returncode != 0 or not ok or "in every bit" not in ok[0]:
+        raise AssertionError(f"dryrun exited {proc.returncode}: {proc.stdout[-2000:]} "
+                             f"{proc.stderr[-3000:]}")
+    log(f"[parallel] cli dryrun --devices 4: exit 0 in {time.perf_counter() - t0:.2f} s: "
+        f"{ok[0]}")
+
+    # 6. The multi-process helpers over NCCL at world size 1, and the pump.
+    saved = {k: os.environ.get(k) for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE",
+                                            "RANK")}
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="1",
+                      RANK="0")
+    try:
+        if not multihost.initialize():
+            raise AssertionError("multihost.initialize() did not join a group")
+        import torch.distributed as dist
+
+        backend = dist.get_backend()
+        t = torch.ones(4, device="cuda:0")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        summaries = [{"clip": "a", "vmaf": 90.0}, {"clip": "b", "vmaf": 80.0}]
+        if (multihost.gather_summaries(summaries) != summaries
+                or multihost.shard_clip_list(["a", "b", "c"]) != ["a", "b", "c"]
+                or t.tolist() != [1.0] * 4 or backend != "nccl"):
+            raise AssertionError("multihost helpers at world size 1")
+        dist.destroy_process_group()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log(f"[parallel] multihost: initialize() from MASTER_ADDR/MASTER_PORT joined a {backend} "
+        f"group of 1, all_reduce, gather_summaries and shard_clip_list, "
+        f"destroy_process_group")
+
+    for path in (ref_path, dist_path):
+        r = _open_reader(path)
+        try:
+            if not isinstance(r, NativeY4MReader):
+                raise AssertionError(f"_open_reader gave {type(r).__name__}")
+            with VideoReader(path) as v:
+                count = 0
+                for a, b in zip(r, v):
+                    if any(a[p].tobytes() != b[p].tobytes() for p in "yuv"):
+                        raise AssertionError(f"{path}: frame {count} differs")
+                    count += 1
+                if count != n or v.read_frame() is not None:
+                    raise AssertionError(f"{path}: {count} frames")
+        finally:
+            r.close()
+    trim_native = os.path.join(WORK_DIR, "trim_native.y4m")
+    trim_python = os.path.join(WORK_DIR, "trim_python.y4m")
+    written = streamed.write_trim(dist_path, trim_native, 5, 41)
+    open_native = streamed._open_native
+    streamed._open_native = lambda *a: None
+    try:
+        streamed.write_trim(dist_path, trim_python, 5, 41)
+    finally:
+        streamed._open_native = open_native
+    with open(trim_native, "rb") as f1, open(trim_python, "rb") as f2:
+        if written != 36 or f1.read() != f2.read():
+            raise AssertionError("write_trim: the native writer's file differs")
+    log(f"[parallel] native pump: _open_reader gave NativeY4MReader, its {n} frames equal "
+        f"to VideoReader's byte for byte on both slice files; write_trim through the "
+        f"native writer ({written} frames) byte-equal to the Python writer's")
+    log("[times] slice warm analyze_videos through the native pump: " + "; ".join(
+        f"{fam} " + ", ".join(f"{t:.3f}" for t in slices[fam]["warm"]) + " s"
+        for fam in PARALLEL_FAMILIES) + f" [{card}]")
+    log(f"[times] parallel phase: {time.perf_counter() - t_phase:.2f} s [{card}]")
 
 
 def profile_run(torch, run, out_dir, card, label):
@@ -1962,6 +2236,14 @@ def main(argv=None) -> int:
     log(f"[build] {_build.BUILD_DIR / _build.LIB_NAME}: "
         + (f"nvcc build {_build.build_seconds:.2f} s" if _build.build_seconds is not None
            else f"up to date (loaded in {time.perf_counter() - t0:.2f} s)"))
+    from pqa2_tpu_torch.io import native
+
+    t0 = time.perf_counter()
+    if not native.is_available():
+        raise RuntimeError("the native frame pump (pqa2_tpu_torch/csrc/framepump.cpp) "
+                           "did not build")
+    log(f"[build] {native._LIB_PATH}: ready in {time.perf_counter() - t0:.2f} s (g++ when "
+        f"it was not built yet)")
     log_path = _build.BUILD_DIR / "build.log"
     if log_path.exists():
         for line in log_path.read_text().splitlines():
@@ -1981,8 +2263,9 @@ def main(argv=None) -> int:
     del workflow
     phase_trace(torch, card, ref_path, dist_path, slices)
     phase_serve(torch, device, card, ref_path, dist_path, slices, args.profile)
-    phase_batch(torch, device, card, ref_path, dist_path, slices)
+    ladder = phase_batch(torch, device, card, ref_path, dist_path, slices)
     phase_capture(torch, device, card)
+    phase_parallel(torch, card, ref_path, dist_path, slices, ladder)
     torch.cuda.empty_cache()
     ref, dist = phase_kernels(torch, device, results)
     phase_times(torch, device, results, ref, dist, card, args.profile)

@@ -152,6 +152,16 @@ def launch(name: str, argtypes: Sequence, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
 
 
+_count_lock = threading.Lock()
+
+
+def count(wrapper, attr: str = "launches") -> None:
+    """Add one to a wrapper's launch count (``wrapper.<attr>``) under a
+    lock: the sharded scorers launch from one worker thread per device."""
+    with _count_lock:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+
+
 def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
 

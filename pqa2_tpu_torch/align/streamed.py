@@ -10,13 +10,16 @@ both clips in host RAM. For inputs past the workflow's memory budget
            its packed block comes back, the frames are discarded;
   decide — align_from_signals on the collected per-frame signals;
   pass 2 — re-read each source and write the aligned trim window
-           frame-by-frame with the y4m writer.
+           frame-by-frame with the native write pump (io/native.py, a C++
+           writer thread draining a ring) where it builds, else the Python
+           y4m writer.
 
 Peak memory is one chunk (~64 frames), independent of clip length.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -26,8 +29,10 @@ from pqa2_tpu_torch.align.bookend import BookendConfig
 from pqa2_tpu_torch.align.stats import _finish_stats, _stats_thumb_chunk
 from pqa2_tpu_torch.align.temporal import AlignmentResult, align_from_signals
 from pqa2_tpu_torch.io.video import VideoReader
-from pqa2_tpu_torch.io.y4m import Y4MHeader, Y4MWriter
+from pqa2_tpu_torch.io.y4m import Y4MHeader, Y4MWriter, header_line
 from pqa2_tpu_torch.pipeline.scoring import resolve_device, upload
+
+logger = logging.getLogger(__name__)
 
 CHUNK = 64
 
@@ -78,7 +83,7 @@ def write_trim(src_path: str, dst_path: str, start: int, stop: int,
                            fps_num=fps[0], fps_den=fps[1],
                            colorspace=colorspace)
         written = 0
-        writer = None
+        native = writer = None
         try:
             for i in range(stop):
                 fr = r.read_frame()
@@ -86,14 +91,35 @@ def write_trim(src_path: str, dst_path: str, start: int, stop: int,
                     break
                 if i < start:
                     continue
-                if writer is None:
-                    writer = Y4MWriter(dst_path, header)
-                writer.write_frame(fr)
+                if native is None and writer is None:
+                    native = _open_native(dst_path, header, fr)
+                    if native is None:
+                        writer = Y4MWriter(dst_path, header)
+                if native is not None:
+                    native.write_payload(np.concatenate([
+                        np.ascontiguousarray(fr[p]).view(np.uint8).ravel()
+                        for p in ("y", "u", "v")]))
+                else:
+                    writer.write_frame(fr)
                 written += 1
         finally:
+            if native is not None:
+                native.close()
             if writer is not None:
                 writer.close()
         return written
+
+
+def _open_native(dst_path, header, first_frame):
+    """The native write pump where it builds; None -> the caller uses the
+    Python writer (with a warning: the pump did not build)."""
+    from pqa2_tpu_torch.io.native import NativeY4MWriter, is_available
+
+    if not is_available():
+        logger.warning("native frame pump unavailable; writing %s with Y4MWriter", dst_path)
+        return None
+    fb = sum(np.ascontiguousarray(first_frame[p]).nbytes for p in ("y", "u", "v"))
+    return NativeY4MWriter(dst_path, header_line(header), fb)
 
 
 def streamed_align(

@@ -11,6 +11,7 @@
   python -m pqa2_tpu_torch.cli batch LADDER.json [--out DIR] [--model M]
                                     [--device cuda|cpu]
   python -m pqa2_tpu_torch.cli serve [--port P] [--warmup] [--device cuda|cpu]
+  python -m pqa2_tpu_torch.cli dryrun [--devices N] [--platform cuda|cpu]
   python -m pqa2_tpu_torch.cli probe VIDEO
   python -m pqa2_tpu_torch.cli models
 
@@ -26,7 +27,11 @@ installed. ``batch`` scores a ladder of pairs with a report per clip and
 prints the summary; ``serve`` runs the HTTP scoring service
 (app/service.py), ``--warmup`` scoring a tiny pair before it listens.
 ``batch`` and ``serve`` refuse to start without the card unless given
-``--device cpu``. ``probe`` prints a video's metadata, ``models`` the
+``--device cpu``. ``dryrun`` runs the sharded scorers on an N-entry mesh
+(the visible cards, repeated when there are fewer; ``--platform cpu``: the
+CPU) and checks them against single-device scoring in every bit
+(parallel/dryrun.py); it too refuses to start without the card unless
+given ``--platform cpu``. ``probe`` prints a video's metadata, ``models`` the
 packaged models.
 """
 
@@ -158,6 +163,13 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_dryrun(args) -> int:
+    from pqa2_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    dryrun_multichip(args.devices, device=args.platform)
+    return 0
+
+
 def cmd_probe(args) -> int:
     from pqa2_tpu_torch.io.video import probe_video
 
@@ -254,6 +266,13 @@ def main(argv: Optional[List[str]] = None) -> int:
                         "synthetic job before listening")
     p.add_argument("--device", default="cuda", help=device_help)
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("dryrun", help="multi-device sharded scoring check")
+    p.add_argument("--devices", type=int, default=8, help="mesh entries")
+    p.add_argument("--platform", default="cuda", choices=["cuda", "cpu"],
+                   help="cuda: the visible cards, repeated when fewer than "
+                        "--devices; cpu: every entry on the CPU")
+    p.set_defaults(fn=cmd_dryrun)
 
     p = sub.add_parser("probe", help="video metadata")
     p.add_argument("video")

@@ -70,7 +70,7 @@ def adm_level(
             fh, fv, fd, gain_limit, COS_1DEG_SQ, _trim(h2), _trim(w2),
             _build.ptr(a_ref), _build.ptr(a_dist), _build.ptr(part), _build.ptr(sums),
             _build.stream(device))
-    adm_level.launches += 1
+    _build.count(adm_level)
     return sums, a_ref, a_dist
 
 

@@ -105,7 +105,7 @@ def adm_int_level(
             int(float(gain_limit) == 1.0), float(np.float32(COS_1DEG_SQ)), th, tw, dshift,
             _build.ptr(ref_a), _build.ptr(dist_a), _build.ptr(sums),
             _build.stream(device))
-    adm_int_level.launches += 1
+    _build.count(adm_int_level)
     return sums, ref_a, dist_a
 
 

@@ -59,7 +59,7 @@ def motion_sad(frames: torch.Tensor) -> torch.Tensor:
                       host_taps("motion_f32", np.asarray(motion_filter(), np.float32),
                                 ctypes.c_float),
                       RUN, _build.ptr(part), _build.ptr(sad), _build.stream(device))
-    motion_sad.launches += 1
+    _build.count(motion_sad)
     return sad
 
 

@@ -57,7 +57,7 @@ def ssim_sse_plane(ref: torch.Tensor, dist: torch.Tensor, bit_depth: int = 8):
                       _build.ptr(dist), n, h, w, c1, c2, _build.ptr(part[0]),
                       _build.ptr(part[1]), _build.ptr(ssim), _build.ptr(sse),
                       _build.stream(device))
-    ssim_sse_plane.launches += 1
+    _build.count(ssim_sse_plane)
     return ssim, sse
 
 

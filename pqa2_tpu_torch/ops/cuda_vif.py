@@ -101,7 +101,7 @@ def vif_scale(
             EPS, SIGMA_NSQ, SIGMA_MAX_INV,
             _build.ptr(part), _build.ptr(sums), _build.ptr(next_ref),
             _build.ptr(next_dist), _build.stream(device))
-    vif_scale.launches += 1
+    _build.count(vif_scale)
     sad = motion_sad(motion_ref) if motion_ref is not None else None
     return sums[:, 0], sums[:, 1], next_ref, next_dist, sad
 

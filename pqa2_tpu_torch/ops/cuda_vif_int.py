@@ -216,9 +216,9 @@ def vif_int_scale(
                 _build.launch("pqa2_motion_sad", _SAD_ARGS, _build.ptr(blurred),
                               m, h, w, _build.ptr(sad), st)
     if exact:
-        vif_int_scale.launches += 1
+        _build.count(vif_int_scale)
         return stats, next_ref, next_dist, sad
-    vif_int_scale.fast_launches += 1
+    _build.count(vif_int_scale, "fast_launches")
     return sums, next_ref, next_dist, sad
 
 
@@ -289,7 +289,7 @@ def _log2_audit_launch(device, want: Optional[torch.Tensor] = None) -> int:
         _build.launch("pqa2_log2_audit", _AUDIT_ARGS,
                       _build.ptr(log2_table_device(device)), _build.ptr(want),
                       _build.ptr(bad), _build.stream(device))
-    log2_table_audit.launches += 1
+    _build.count(log2_table_audit)
     return int(bad.item())
 
 

@@ -1,10 +1,12 @@
 """Streaming clip scoring (port of pqa2_tpu/pipeline/streaming.py:stream_score).
 
 A producer thread decodes paired ref/dist chunks into a bounded queue
-while the device scores the previous chunk. One frame is carried across
-each chunk boundary on both sides (the motion halo). PSNR and SSIM run on
-all three planes beside the VMAF features; with both enabled, one kernel
-pass per plane gives SSIM and the SSE.
+while the device scores the previous chunk; y4m files are read through the
+native frame pump (io/native.py, a C++ reader thread prefetching into a
+ring) where it builds, other files through ``VideoReader``. One frame is
+carried across each chunk boundary on both sides (the motion halo). PSNR
+and SSIM run on all three planes beside the VMAF features; with both
+enabled, one kernel pass per plane gives SSIM and the SSE.
 
 Every tensor lives on the ``device`` argument; there is no other device
 choice and no retry loop (the JAX package retries on transient TPU
@@ -42,9 +44,32 @@ from pqa2_tpu_torch.pipeline.scoring import (
 logger = logging.getLogger(__name__)
 
 
+def _open_reader(path: str):
+    """The native threaded pump for y4m where it builds; else VideoReader
+    (with a warning: the pump did not build)."""
+    if str(path).lower().endswith(".y4m"):
+        from pqa2_tpu_torch.io.native import NativeY4MReader, is_available
+
+        if is_available():
+            return NativeY4MReader(path)
+        logger.warning("native frame pump unavailable; reading %s with VideoReader", path)
+    return VideoReader(path)
+
+
+def _reader_depth(reader) -> int:
+    if hasattr(reader, "bit_depth"):
+        return int(reader.bit_depth)
+    if hasattr(reader, "info"):
+        return int(reader.info.bit_depth)
+    return 8
+
+
 def _check_geometry(ref_r, dist_r, ref_path, dist_path) -> None:
-    rg = (ref_r.info.width, ref_r.info.height)
-    dg = (dist_r.info.width, dist_r.info.height)
+    def geom(r):
+        info = getattr(r, "info", r)
+        return (info.width, info.height)
+
+    rg, dg = geom(ref_r), geom(dist_r)
     if rg != dg:
         raise ValueError(
             f"resolution mismatch: reference {ref_path!r} is {rg[0]}x{rg[1]} "
@@ -58,12 +83,12 @@ def _chunk_producer(ref_path, dist_path, chunk_size, out_q, max_frames, stop,
     or the exception that stopped the reader (pqa2_tpu streaming.py:68)."""
     readers = []
     try:
-        ref_r = VideoReader(ref_path)
+        ref_r = _open_reader(ref_path)
         readers.append(ref_r)
-        dist_r = VideoReader(dist_path)
+        dist_r = _open_reader(dist_path)
         readers.append(dist_r)
-        meta["ref_depth"] = int(ref_r.info.bit_depth)
-        meta["dist_depth"] = int(dist_r.info.bit_depth)
+        meta["ref_depth"] = _reader_depth(ref_r)
+        meta["dist_depth"] = _reader_depth(dist_r)
         _check_geometry(ref_r, dist_r, ref_path, dist_path)
         n_read = 0
         ref_buf: List[Dict] = []

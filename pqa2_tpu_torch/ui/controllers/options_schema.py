@@ -125,10 +125,9 @@ FIELDS: List[Field] = [
     # category's name so both packages share one settings file) ------------
     Field("tpu", "chunk_size", "Chunk size (frames per card batch)", "int",
           "TPU", lo=1, hi=256),
-    Field("tpu", "mesh_data", "Mesh data axis (0=auto; not yet used by the "
-          "CUDA port)", "int", "TPU", lo=0, hi=4096),
-    Field("tpu", "mesh_space", "Mesh space axis (not yet used by the CUDA "
-          "port)", "int", "TPU", lo=1, hi=64),
+    Field("tpu", "mesh_data", "Mesh data axis (0=auto)", "int", "TPU",
+          lo=0, hi=4096),
+    Field("tpu", "mesh_space", "Mesh space axis", "int", "TPU", lo=1, hi=64),
     Field("tpu", "profile_dir", "torch.profiler trace dir", "dir", "TPU"),
 ]
 

@@ -2,8 +2,8 @@
 ``tpu.profile_dir`` trace, on the CPU.
 
   * every name the JAX package exports at top level and from ``models``,
-    ``io``, ``utils``, ``golden``, ``pipeline`` and ``ops`` resolves in the
-    port, or ROADMAP.md lists it (with the reason it has no counterpart);
+    ``io``, ``utils``, ``golden``, ``pipeline``, ``ops`` and ``parallel``
+    resolves in the port, or ROADMAP.md lists it (with the reason it has no counterpart);
   * ``import pqa2_tpu_torch`` alone imports no ``pipeline``/``app`` module
     and not torch (the top-level names load on first use);
   * ``golden.psnr``'s ``psnr_frame``/``psnr_pooled`` give the JAX oracle's
@@ -40,7 +40,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 #: The top-level names of pqa2_tpu/__init__.py's lazy ``__getattr__``.
 TOP_LEVEL = ("score_clip", "score_planes", "ClipScores", "stream_score", "VMAFAnalyzer",
              "BookendAligner", "ReferenceAnalyzer", "get_model")
-SUBPACKAGES = ("models", "io", "utils", "golden", "pipeline", "ops")
+SUBPACKAGES = ("models", "io", "utils", "golden", "pipeline", "ops", "parallel")
 
 
 def _exports(module):

@@ -3,7 +3,7 @@
 pqa2_tpu_torch imports nothing of pqa2_tpu: it keeps copies of the numpy
 oracles (``golden/``), the model loader and registry with the nine packaged
 ``data/*.npz`` files, the video readers and the capture-file repair
-(``io/``), three utilities (``signals``, ``profiling``'s meter, ``logs``), the
+(``io/``, the native frame pump's binding and its C++ source among them), three utilities (``signals``, ``profiling``'s meter, ``logs``), the
 settings store (``app/options_manager.py``) and its options schema,
 the report generator (``app/report_generator.py``), the results store, the
 capture-device discovery and the capture manager (``app/results_store.py``,
@@ -165,10 +165,11 @@ def test_npz_files_byte_identical():
         assert a.read_bytes() == b.read_bytes(), a.name
 
 
-def test_io_copies_read_and_write_the_same(tmp_path):
+def test_io_copies_read_and_write_the_same(tmp_path, monkeypatch):
+    from pqa2_tpu.io import native as jax_native
     from pqa2_tpu.io import video as jax_video
     from pqa2_tpu.io import y4m as jax_y4m
-    from pqa2_tpu_torch.io import video, y4m
+    from pqa2_tpu_torch.io import native, video, y4m
 
     ref, _ = _pair(12, 3, 36, 52)
     frames = [{"y": f, "u": f[::2, ::2], "v": 255 - f[::2, ::2]} for f in ref]
@@ -186,6 +187,42 @@ def test_io_copies_read_and_write_the_same(tmp_path):
     for g, f in zip(got, frames):
         for p in "yuv":
             np.testing.assert_array_equal(g[p], f[p])
+
+    # io/native.py: the C++ source is byte-equal to the JAX package's, and
+    # the two bindings, over the port's build of it (so that nothing here
+    # builds native/), read and write the same.
+    assert (ROOT / "pqa2_tpu_torch" / "csrc" / "framepump.cpp").read_bytes() == (
+        ROOT / "native" / "framepump.cpp").read_bytes()
+    assert native.is_available()
+    monkeypatch.setattr(jax_native, "_LIB_PATH", native._LIB_PATH)
+    monkeypatch.setattr(jax_native, "_SRC_PATH", native._SRC_PATH)
+    monkeypatch.setattr(jax_native, "_lib", None)
+    assert jax_native.is_available()
+    public = {k for k in vars(jax_native) if not k.startswith("_")}
+    assert public <= set(vars(native)) and {"NativeY4MReader", "NativeY4MWriter"} <= public
+    readers = [m.NativeY4MReader(str(tmp_path / "p.y4m")) for m in (jax_native, native)]
+    try:
+        attrs = ("width", "height", "fps_num", "fps_den", "bit_depth", "chroma_w",
+                 "chroma_h", "frame_bytes", "fps")
+        assert [getattr(readers[0], a) for a in attrs] == [getattr(readers[1], a) for a in attrs]
+        a, b = readers[0].read_batch(2) + list(readers[0]), readers[1].read_batch(2) + list(
+            readers[1])
+    finally:
+        for r in readers:
+            r.close()
+    assert len(a) == len(b) == 3
+    for x, z in zip(a, b):
+        for p in "yuv":
+            assert x[p].dtype == z[p].dtype and x[p].tobytes() == z[p].tobytes()
+    src = y4m.Y4MReader(str(tmp_path / "p.y4m"))
+    header = y4m.header_line(src.header)
+    src.close()
+    for m, name in ((jax_native, "jn.y4m"), (native, "pn.y4m")):
+        with m.NativeY4MWriter(str(tmp_path / name), header, readers[1].frame_bytes) as w:
+            for f in frames:
+                w.write_payload(np.concatenate([f[p].ravel() for p in "yuv"]))
+    assert (tmp_path / "jn.y4m").read_bytes() == (tmp_path / "pn.y4m").read_bytes() == (
+        tmp_path / "p.y4m").read_bytes()
 
     # io/repair.py: a capture cut mid-frame keeps its good prefix, and both
     # copies judge and salvage it the same way.

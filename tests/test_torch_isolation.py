@@ -56,11 +56,13 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert len(MODULES) >= 20
-    # The service, batch and capture modules are reached by both scans.
+    # The service, batch, capture, parallel and pump modules are reached by
+    # both scans.
     assert {f"pqa2_tpu_torch.{m}" for m in (
         "analyzer", "ops.colorspace", "pipeline.batch", "app.service", "app.results_store",
         "app.utils", "app.capture", "app.devices", "io.repair", "ui.main_window",
-        "main")} <= set(MODULES)
+        "main", "parallel.__init__", "parallel.mesh", "parallel.scoring", "parallel.multihost",
+        "parallel.dryrun", "io.native")} <= set(MODULES)
 
 
 def _imports_forbidden(stmt: str) -> bool:
@@ -151,11 +153,12 @@ def _no_card():
 
 
 @pytest.mark.parametrize("entry", ["require_cuda", "library", "log2_audit",
-                                   "stream_score", "analyzer"])
+                                   "stream_score", "analyzer", "make_mesh", "dryrun"])
 def test_cuda_requests_raise_without_a_card(entry, tmp_path):
     _no_card()
-    from pqa2_tpu_torch import _build
+    from pqa2_tpu_torch import _build, cli
     from pqa2_tpu_torch._device import require_cuda
+    from pqa2_tpu_torch.parallel import make_mesh
     from pqa2_tpu_torch.app.vmaf_analyzer import VMAFAnalyzer
     from pqa2_tpu_torch.ops.cuda_vif_int import log2_table_audit
     from pqa2_tpu_torch.pipeline.streaming import stream_score
@@ -176,7 +179,9 @@ def test_cuda_requests_raise_without_a_card(entry, tmp_path):
     fn = {"require_cuda": lambda: require_cuda("cuda"),
           "library": _build.library,
           "log2_audit": lambda: log2_table_audit("cuda"),
-          "stream_score": lambda: stream_score(clip, clip, device="cuda")}[entry]
+          "stream_score": lambda: stream_score(clip, clip, device="cuda"),
+          "make_mesh": make_mesh,
+          "dryrun": lambda: cli.main(["dryrun", "--devices", "2", "--platform", "cuda"])}[entry]
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         fn()
 
