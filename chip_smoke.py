@@ -139,11 +139,33 @@ any failure raises and the exit code is 1):
      reader, whose frames equal ``VideoReader``'s byte for byte on both
      slice files, and ``write_trim`` through the native writer must write
      the Python writer's bytes. Each sharded run's seconds are printed
-     beside the single-device run's, and the phase's total;
-  4. CUDA-event times of each kernel against its plain version at 1080p,
-     each kernel's bound (the least time the card could take for the same
-     work), and each slice's frames per second: its first run and three
-     warm runs. With --profile, torch.profiler over one more warm run of
+     beside the single-device run's, and the phase's total.
+     Then the 4K and high-bit-depth configurations (the depth phase), each
+     through ``analyze_videos`` from y4m files with PSNR+SSIM: a 36-frame
+     8-bit 3840x2160 pair (chunks 32+4) with ``vmaf_4k_v0.6.1``,
+     ``vmaf_4k_v0.6.1neg`` (kernels 1 and 3 at gain limit 1.0) and
+     ``vmaf_float_4k_v0.6.1``, the same pair at 10 bits (C420p10: the 8-bit
+     codes x 4 plus code noise in [0, 3]) with ``vmaf_4k_v0.6.1``, and an
+     8-bit reference against a 10-bit distorted 1920x1080 clip of 34 frames
+     with ``vmaf_v0.6.1``. Each run must launch each kernel as often as its
+     chunks need (no log2 audit), write its JSON and txt logs (VMAF in
+     (0, 100], the PSNR summary pooled at the native peak), give a warm run
+     the same bits and give ``analyze_frames`` on the decoded frames (the
+     mixed pair's reference promoted to 10-bit codes) its per-frame
+     features, VMAF, PSNR and SSIM in every bit. Frames 0, 31, 32 and 35 of
+     each 4K run are recomputed with the plain versions on the card
+     (integer features equal in every bit, float ones within 1e-5); frame
+     32 of the 10-bit run is held to the numpy oracles (VIF, ADM, motion,
+     SSIM within 2e-6 at depth 10, PSNR at peak 1023) and kernel 4 at 10
+     bits to its plain version. Each run's first and warm seconds and fps,
+     its peak device memory and the process's peak RSS are printed (with
+     --profile, its HtoD copies and bytes); the files are deleted after;
+  4. CUDA-event times of each kernel against its plain version at 1080p
+     and at 3840x2160 (32 core frames; kernel 1 also on 10-bit int32
+     codes, with its launches per 36-frame 4K run), each kernel's bound
+     (the least time the card could take for the same work), and each
+     slice's frames per second: its first run and three warm runs. With
+     --profile, torch.profiler over one more warm run of
      each slice, of the workflow and of one service job (device busy time,
      idle share, and the count and bytes of host-to-device copies) and over
      three scale-0 or level-0 calls of each VIF and ADM kernel (kernel 1f
@@ -665,9 +687,14 @@ def work(name, n, h, w, m=0):
     raise KeyError(name)
 
 
-def phase_times(torch, device, results, ref, dist, card, profile_dir=None):
-    """Phase 4a: each kernel against its plain version at 1080p, CUDA events,
-    and its bound."""
+def kernel_cases(torch, device, ref, dist, codes_depth=8):
+    """Each kernel's timed call on one chunk: ``ref``/``dist`` are n + 2
+    frames of uint8 luma (32 core frames and both halos), the core frames a
+    view of it as the main path hands them over. Returns name -> (kernel
+    call, plain call, what, (bytes, operations)), plus two calls timed
+    beside the rows: "vif_int_scale codes" (kernel 1 on int32 codes at
+    ``codes_depth`` bits: the 8-bit field x 2^(depth-8) plus code noise)
+    and "adm_int_level uint8" (kernel 3 on the chunk's uint8 luma)."""
     from pqa2_tpu_torch.ops import (
         cuda_adm,
         cuda_adm_int,
@@ -681,67 +708,87 @@ def phase_times(torch, device, results, ref, dist, card, profile_dir=None):
     from pqa2_tpu_torch.ops.motion import motion_sad_plain
     from pqa2_tpu_torch.ops.ssim import ssim_sse_plane_plain
     from pqa2_tpu_torch.ops.vif import vif_scale_plain
-    from pqa2_tpu_torch.ops.vif_int import to_native_grid, vif_int_scale_plain
+    from pqa2_tpu_torch.ops.vif_int import vif_int_scale_plain
 
-    n, h, w = 32, ref.shape[1], ref.shape[2]
-    # The main path's scale-0 call: the chunk's uint8 luma, the core frames
-    # a view of it (the int32 codes are timed beside it).
-    r, d, m = ref[1:33], dist[1:33], ref
-    kw = dict(scale=0, in_q=0, gain_limit=float("inf"), decimate=True, motion_ref=m)
-    mi = to_native_grid(ref, 8)[0]
-    ri, di = mi[1:33], to_native_grid(dist[1:33], 8)[0]
-    kwi = dict(kw, motion_ref=mi)
+    m, (h, w) = ref.shape[0], ref.shape[1:]
+    n = m - 2
+    r, d = ref[1:n + 1], dist[1:n + 1]
+    kw = dict(scale=0, in_q=0, gain_limit=float("inf"), decimate=True, motion_ref=ref)
+    s = 1 << (codes_depth - 8)
+    g = torch.Generator(device=device).manual_seed(33)
+
+    def codes(x):
+        return x.to(torch.int32) * s + torch.randint(0, s, x.shape, generator=g, device=device,
+                                                     dtype=torch.int32)
+
+    mi = codes(ref)
+    ri, di = mi[1:n + 1], codes(d)
+    kwi = dict(kw, in_q=codes_depth - 8, motion_ref=mi)
     # Integer ADM's row figure: int32 Q4 codes, as the parent took them;
     # the main path's uint8 call is timed beside it.
-    ra, _ = level_input(ref[1:33].to(torch.int32), 8)
-    da, _ = level_input(dist[1:33].to(torch.int32), 8)
+    ra, _ = level_input(r.to(torch.int32), 8)
+    da, _ = level_input(d.to(torch.int32), 8)
     akw = dict(level=0, extra_row_shift=0, gain_limit=100.0)
-    rl, dl, ml = ref[1:33].float(), dist[1:33].float(), ref.float()
+    rl, dl, ml = r.float(), d.float(), ref.float()
     fkw = dict(scale=0, gain_limit=float("inf"), variant="classic", emit_next=True)
-    cases = {
+    vif = f"scale 0, {n} core frames + motion over {m}"
+    return {
         "vif_int_scale": (lambda: cuda_vif_int.vif_int_scale(r, d, **kw),
                           lambda: vif_int_scale_plain(r, d, **kw),
-                          "scale 0, 32 core frames + motion over 34, 1080p, uint8",
-                          work("vif_int_scale", n, h, w, m=34)),
+                          f"{vif}, uint8", work("vif_int_scale", n, h, w, m=m)),
         "vif_int_scale_fast": (lambda: cuda_vif_int.vif_int_scale(r, d, exact=False, **kw),
                                lambda: vif_int_scale_plain(r, d, exact=False, **kw),
-                               "fast form, scale 0, 32 core frames + motion over 34, "
-                               "1080p, uint8", work("vif_int_scale_fast", n, h, w, m=34)),
+                               f"fast form, {vif}, uint8",
+                               work("vif_int_scale_fast", n, h, w, m=m)),
         "log2_table_audit": (lambda: cuda_vif_int._log2_audit_launch(device),
                              lambda: cuda_vif_int._audit_mismatches_plain(device),
                              "32768 mantissas x 2, the uncached launch, one int copied back",
                              work("log2_table_audit", 0, 0, 0)),
         "adm_int_level": (lambda: cuda_adm_int.adm_int_level(ra, da, **akw),
                           lambda: adm_level_plain(ra, da, **akw),
-                          "level 0, 32 frames, 1080p, int32 Q4 codes",
+                          f"level 0, {n} frames, int32 Q4 codes",
                           work("adm_int_level", n, h, w)),
         "ssim_sse_plane": (lambda: cuda_ssim.ssim_sse_plane(rl, dl, 8),
                            lambda: ssim_sse_plane_plain(rl, dl, 8),
-                           "32 frames, 1080p luma", work("ssim_sse_plane", n, h, w)),
+                           f"{n} frames, luma", work("ssim_sse_plane", n, h, w)),
         "vif_scale": (lambda: cuda_vif.vif_scale(rl, dl, **fkw),
                       lambda: vif_scale_plain(rl, dl, **fkw),
-                      "scale 0 classic + next scale's planes, 32 frames, 1080p",
+                      f"scale 0 classic + next scale's planes, {n} frames",
                       work("vif_scale", n, h, w)),
         "adm_level": (lambda: cuda_adm.adm_level(rl, dl, level=0, gain_limit=100.0),
                       lambda: adm_level_plain_float(rl, dl, level=0, gain_limit=100.0),
-                      "level 0, 32 frames, 1080p", work("adm_level", n, h, w)),
+                      f"level 0, {n} frames", work("adm_level", n, h, w)),
         "motion_sad": (lambda: cuda_motion.motion_sad(ml),
                        lambda: motion_sad_plain(ml),
-                       "34 frames (32 + both halos), 1080p", work("motion_sad", 34, h, w)),
+                       f"{m} frames ({n} + both halos)", work("motion_sad", m, h, w)),
+        "vif_int_scale codes": (lambda: cuda_vif_int.vif_int_scale(ri, di, **kwi),
+                                lambda: vif_int_scale_plain(ri, di, **kwi),
+                                f"{vif}, {codes_depth}-bit int32 codes",
+                                work("vif_int_scale", n, h, w, m=m)),
+        "adm_int_level uint8": (lambda: cuda_adm_int.adm_int_level(r, d, **akw),
+                                lambda: adm_level_plain(r, d, **akw),
+                                f"level 0, {n} frames, the chunk's uint8 luma as the main "
+                                f"path hands it over", work("adm_int_level", n, h, w)),
     }
-    for name, (kern, plain, what, (nbytes, nops)) in cases.items():
+
+
+def phase_times(torch, device, results, ref, dist, card, profile_dir=None):
+    """Phase 4a: each kernel against its plain version at 1080p, CUDA events,
+    and its bound."""
+    cases = kernel_cases(torch, device, ref, dist)
+    for name in KERNELS:
+        kern, plain, what, (nbytes, nops) = cases[name]
         k_ms = time_call(torch, kern, 10)
         p_ms = time_call(torch, plain, 3)
         b_ms, by = bound(nbytes, nops)
         results[name].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by)
-        log(f"[times] {name} ({what}): kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+        log(f"[times] {name} ({what}, 1080p): kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
             f"bound {b_ms:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, {nops / 1e9:.2f} G ops) "
             f"[{card}]")
-    i_ms = time_call(torch, lambda: cuda_vif_int.vif_int_scale(ri, di, **kwi), 10)
-    log(f"[times] vif_int_scale (the same call on int32 codes): kernel {i_ms:.3f} ms [{card}]")
-    u_ms = time_call(torch, lambda: cuda_adm_int.adm_int_level(r, d, **akw), 10)
-    log(f"[times] adm_int_level (the same call on the chunk's uint8 luma, as the main "
-        f"path hands it over): kernel {u_ms:.3f} ms [{card}]")
+    for name in ("vif_int_scale codes", "adm_int_level uint8"):
+        kern, _, what, _ = cases[name]
+        log(f"[times] {name.split()[0]} (the same call, {what}): kernel "
+            f"{time_call(torch, kern, 10):.3f} ms [{card}]")
     if profile_dir:
         for name in ("vif_int_scale", "vif_int_scale_fast", "vif_scale", "adm_int_level",
                      "adm_level"):
@@ -750,21 +797,75 @@ def phase_times(torch, device, results, ref, dist, card, profile_dir=None):
                         f"{name}_3_calls")
 
 
-def write_pair(n, h, w, ref_path, dist_path, torch, device):
-    """Synthetic 8-bit 4:2:0 y4m pair (pqa2_tpu_torch.io.y4m.write_y4m)."""
+def phase_times_4k(torch, device, card, launches, n=32, h=2160, w=3840):
+    """Phase 4a at the 4K runs' chunk shape: each kernel at 3840x2160 (scale
+    0 or level 0, 32 core frames, 8-bit luma; kernel 1 also on 10-bit int32
+    codes) against its plain version, CUDA events, the bound from ``work``
+    for the same shape, and its launches over one 36-frame 4K run of the
+    depth phase (``launches``: family -> counts). One JSON line holds the
+    table."""
+    ref = smooth_frames(torch, n + 2, h, w, 31, device)
+    dist = distort(torch, ref, 32)
+    cases = kernel_cases(torch, device, ref, dist, codes_depth=10)
+    del cases["log2_table_audit"], cases["adm_int_level uint8"]  # no frame shape; 1080p's
+    family = {"vif_int_scale": "integer", "vif_int_scale codes": "integer",
+              "adm_int_level": "integer", "ssim_sse_plane": "integer", "vif_scale": "float",
+              "adm_level": "float", "motion_sad": "float"}
+    table = []
+    for name, (kern, plain, what, (nbytes, nops)) in cases.items():
+        k_ms = time_call(torch, kern, 10)
+        try:
+            p_ms = time_call(torch, plain, 1)
+        except torch.cuda.OutOfMemoryError:
+            p_ms = None
+        torch.cuda.empty_cache()
+        b_ms, by = bound(nbytes, nops)
+        runs = launches.get(family.get(name), {}).get(name.split()[0], 0)
+        table.append({"name": name, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                      "bound_by": by, "launches_per_4k_run": runs})
+        log(f"[times] {name} at {w}x{h} ({what}): kernel {k_ms:.3f} ms, plain "
+            + (f"{p_ms:.3f} ms" if p_ms is not None else "not measured (out of memory)")
+            + f", bound {b_ms:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, {nops / 1e9:.2f} G ops), "
+            f"{runs} launches per 36-frame 4K run [{card}]")
+    log(f"[times] kernels at {w}x{h} [{card}]: {json.dumps(table)}")
+
+
+def write_pair(n, h, w, ref_path, dist_path, torch, device, depth=8, dist_depth=None):
+    """Synthetic 4:2:0 y4m pair (pqa2_tpu_torch.io.y4m.write_y4m) -> (ref
+    luma, dist luma) as the files hold them (uint8, or uint16 codes). Past
+    8 bits a file's codes are the 8-bit field x 2^(depth-8) plus code noise
+    in [0, 2^(depth-8)), written as C420p{depth}; ``dist_depth`` gives the
+    distorted file a depth of its own."""
+    import numpy as np
+
     from pqa2_tpu_torch.io.y4m import write_y4m
 
     ref = smooth_frames(torch, n, h, w, 11, device)
     dist = distort(torch, ref, 12, radius=3, noise=16)
+    noise = torch.Generator(device=device).manual_seed(13)
 
-    def planes(y):
+    def planes(y, bits):
         c = torch.nn.functional.avg_pool2d(y.float()[:, None], 2)[:, 0].round().to(torch.uint8)
-        return y.cpu().numpy(), c.cpu().numpy()
+        if bits == 8:
+            return y.cpu().numpy(), c.cpu().numpy()
+        s = 1 << (bits - 8)
 
-    ry, rc = planes(ref)
-    dy, dc = planes(dist)
-    write_y4m(ref_path, [{"y": ry[i], "u": rc[i], "v": 255 - rc[i]} for i in range(n)])
-    write_y4m(dist_path, [{"y": dy[i], "u": dc[i], "v": 255 - dc[i]} for i in range(n)])
+        def deep(x):
+            x = x.to(torch.int32) * s + torch.randint(0, s, x.shape, generator=noise,
+                                                      device=device, dtype=torch.int32)
+            return x.cpu().numpy().astype(np.uint16)
+
+        return deep(y), deep(c)
+
+    def write(path, y, c, bits):
+        top = np.uint16(255 << (bits - 8)) if bits > 8 else np.uint8(255)
+        write_y4m(path, [{"y": y[i], "u": c[i], "v": top - c[i]} for i in range(n)],
+                  **({"colorspace": f"C420p{bits}"} if bits > 8 else {}))
+
+    ry, rc = planes(ref, depth)
+    dy, dc = planes(dist, depth if dist_depth is None else dist_depth)
+    write(ref_path, ry, rc, depth)
+    write(dist_path, dy, dc, depth if dist_depth is None else dist_depth)
     return ry, dy
 
 
@@ -2107,6 +2208,321 @@ def phase_parallel(torch, card, ref_path, dist_path, slices, ladder):
     log(f"[times] parallel phase: {time.perf_counter() - t_phase:.2f} s [{card}]")
 
 
+DEPTH_FRAMES = 36        # chunks 32 + 4: a motion halo across the boundary, a short tail
+DEPTH_MIXED_FRAMES = 34  # chunks 32 + 2
+DEPTH_4K = (2160, 3840)
+DEPTH_MIXED = (1080, 1920)
+DEPTH_PLAIN_FRAMES = (0, 31, 32, 35)  # both clip ends and both sides of the boundary
+DEPTH_SSIM_ATOL = 2e-6   # SSIM past 8 bits vs the oracle (tests/test_highbitdepth.py:103)
+PSNR_ATOL = 1e-6         # dB; the port's SSE is exact, the oracle's float64
+# Launches per chunk of each family (VIF and ADM: 4 scales / levels; kernel
+# 5 launches kernel 7 once per chunk; SSIM: Y, U, V).
+INT_PER_CHUNK = {"vif_int_scale": 4, "adm_int_level": 4, "ssim_sse_plane": 3}
+FLOAT_PER_CHUNK = {"vif_scale": 4, "adm_level": 4, "motion_sad": 1, "ssim_sse_plane": 3}
+
+
+def plain_features(torch, ref, dist, *, has_prev, has_next, bit_depth, params):
+    """``pipeline/features.py:extract_features_batched`` with each kernel's
+    plain PyTorch version in its place, on the same tensors -> host
+    per-frame arrays of the core frames."""
+    from pqa2_tpu_torch.ops.adm import adm_from_level_sums, adm_level_plain_float
+    from pqa2_tpu_torch.ops.adm_int import (
+        adm_cascade,
+        adm_from_digit_sums,
+        adm_level_plain,
+        digits_from_sums,
+    )
+    from pqa2_tpu_torch.ops.motion import features_from_sad_prev, motion_sad_plain
+    from pqa2_tpu_torch.ops.motion_int import motion_from_sad
+    from pqa2_tpu_torch.ops.vif import vif_ratio, vif_scale_plain
+    from pqa2_tpu_torch.ops.vif_int import scale0_codes, vif_cascade, vif_int_scale_plain
+
+    n, h, w = ref.shape
+    core = slice(1 if has_prev else 0, n - 1 if has_next else n)
+    if params["precision"] == "integer":
+        codes, _ = scale0_codes(ref, bit_depth)
+        vif, sad = vif_cascade(codes[core], dist[core], gain_limit=params["vif_gain"],
+                               bit_depth=bit_depth, scale_fn=vif_int_scale_plain,
+                               motion_ref=codes)
+        motion, motion2 = features_from_sad_prev(motion_from_sad(sad, h, w), n,
+                                                 has_prev=has_prev, has_next=has_next)
+        sums = adm_cascade(ref[core], dist[core], gain_limit=params["adm_gain"],
+                           bit_depth=bit_depth, level_fn=adm_level_plain)
+        adm2 = torch.as_tensor(adm_from_digit_sums(digits_from_sums(sums), h, w))
+    else:
+        r, d, vif = ref[core].float(), dist[core].float(), []
+        for scale in range(4):
+            num, den, r, d = vif_scale_plain(r, d, scale=scale, gain_limit=params["vif_gain"],
+                                             variant=params["vif_variant"],
+                                             emit_next=scale < 3)
+            vif.append(vif_ratio(num, den))
+        vif = torch.stack(vif, dim=-1)
+        motion, motion2 = features_from_sad_prev(motion_sad_plain(ref.float())[1:], n,
+                                                 has_prev=has_prev, has_next=has_next)
+        r, d, sums = ref[core].float(), dist[core].float(), []
+        for lvl in range(4):
+            s, r, d = adm_level_plain_float(r, d, level=lvl, gain_limit=params["adm_gain"])
+            sums.append(s)
+        adm2 = adm_from_level_sums(sums, h, w)
+    out = {"adm2": adm2, "motion": motion, "motion2": motion2}
+    out.update({f"vif_scale{s}": vif[:, s] for s in range(4)})
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def check_plain_frames(torch, device, label, scores, ry, dy, depth, model, family):
+    """Frames DEPTH_PLAIN_FRAMES of a run recomputed by ``plain_features``
+    on the card, each with its neighbours as its chunk holds them (frame 31
+    with chunk 0's halo frame 32, frame 32 with chunk 1's halo frame 31):
+    integer features equal in every bit, float features within the
+    kernel-vs-plain budgets (PERF.md section 2)."""
+    import numpy as np
+
+    from pqa2_tpu_torch.models.registry import get_model
+    from pqa2_tpu_torch.pipeline.features import model_feature_params
+    from pqa2_tpu_torch.pipeline.scoring import upload
+
+    params = model_feature_params(get_model(model), None, device=device)
+    n, div = ry.shape[0], float(1 << (depth - 8))
+    worst = 0.0
+    for t in DEPTH_PLAIN_FRAMES:
+        lo, hi = max(t - 1, 0), min(t + 2, n)
+        r = upload(ry[lo:hi], device, div)
+        d = upload(dy[lo:hi], device, div)
+        got = plain_features(torch, r, d, has_prev=t > 0, has_next=t < n - 1,
+                             bit_depth=depth, params=params)
+        for k, v in got.items():
+            want = scores.features[k][t]
+            if family == "integer":
+                if v.shape != (1,) or v.dtype != want.dtype or v[0] != want:
+                    raise AssertionError(f"{label} frame {t} {k}: plain {v} != kernels' {want}")
+                continue
+            diff = abs(float(v[0]) - float(want))
+            lim = FLOAT_SUM_RTOL * abs(float(want)) if k.startswith("motion") else FLOAT_FEAT_ATOL
+            if not diff <= lim:
+                raise AssertionError(f"{label} frame {t} {k}: plain {v[0]} vs kernels' {want} "
+                                     f"({diff:.3e} > {lim:.3e})")
+            worst = max(worst, diff)
+        del r, d
+    log(f"[depth] {label}: frames {', '.join(map(str, DEPTH_PLAIN_FRAMES))} recomputed with the "
+        f"plain versions on the card: "
+        + ("every integer feature equal in every bit" if family == "integer" else
+           f"features within {FLOAT_FEAT_ATOL:g} (motion {FLOAT_SUM_RTOL:g} rel), max "
+           f"|diff| {worst:.3e}"))
+
+
+def check_depth_artifacts(res, scores, label, model, n, w, h, peak):
+    """The results dict, the libvmaf-schema JSON and the PSNR/SSIM logs of
+    one run: VMAF in (0, 100], the PSNR summary pooled at the native peak."""
+    import re
+
+    import numpy as np
+
+    if res is None:
+        raise AssertionError(f"{label} failed")
+    if (res["frame_count"], res["width"], res["height"], res["model"]) != (n, w, h, model):
+        raise AssertionError(f"{label}: results {res['frame_count']} frames "
+                             f"{res['width']}x{res['height']} {res['model']}")
+    with open(res["json_path"]) as f:
+        frames = json.load(f)["frames"]
+    vmaf = np.array([fr["metrics"]["vmaf"] for fr in frames])
+    if len(frames) != n or not (np.all(vmaf > 0.0) and np.all(vmaf <= 100.0)):
+        raise AssertionError(f"{label}: {len(frames)} JSON frames, VMAF "
+                             f"{vmaf.min()}..{vmaf.max()} not in (0, 100]")
+    for k in ("psnr_y", "psnr_u", "psnr_v", "float_ssim"):
+        v = np.array([fr["metrics"][k] for fr in frames])
+        if not np.all(np.isfinite(v)):
+            raise AssertionError(f"{label}: non-finite {k} in the JSON log")
+    with open(res["psnr_log"]) as f:
+        lines = f.read().splitlines()
+    m = re.match(r"PSNR average:([0-9.]+) ", lines[-1])
+    want = 10.0 * np.log10(peak * peak / np.mean(scores.psnr["mse_avg"]))
+    if (len(lines) != n + 1 or m is None or abs(float(m.group(1)) - want) > 1e-5
+            or abs(float(m.group(1)) - float(np.mean(scores.psnr["psnr_avg"]))) > 3.0
+            or scores.peak != peak):
+        raise AssertionError(f"{label}: PSNR log summary {lines[-1]!r}, expected "
+                             f"{want:.6f} at peak {peak:g}")
+    with open(res["ssim_log"]) as f:
+        lines = f.read().splitlines()
+    if len(lines) != n + 1 or not lines[-1].startswith("SSIM average:"):
+        raise AssertionError(f"{label}: SSIM log has {len(lines)} lines")
+    return float(m.group(1))
+
+
+def phase_depth(torch, device, card, profile_dir=None):
+    """Phase 3, the 4K and high-bit-depth configurations through
+    ``analyze_videos`` from y4m files: 8-bit 3840x2160 with
+    ``vmaf_4k_v0.6.1``, ``vmaf_4k_v0.6.1neg`` and ``vmaf_float_4k_v0.6.1``,
+    10-bit 3840x2160 with ``vmaf_4k_v0.6.1`` and an 8-bit reference against
+    a 10-bit distorted 1920x1080 clip with ``vmaf_v0.6.1``, each with
+    PSNR+SSIM: launches per chunk, the in-memory path on the decoded frames
+    in every bit, frames recomputed with the plain versions, the 10-bit
+    run's frame 32 against the oracles, the artifacts at the native peak,
+    wall seconds and peak device memory. Returns the 8-bit 4K runs' launch
+    counts by family."""
+    import resource
+    import shutil
+
+    import numpy as np
+
+    from pqa2_tpu_torch.app.vmaf_analyzer import VMAFAnalyzer
+    from pqa2_tpu_torch.golden.adm_int import adm_features_int
+    from pqa2_tpu_torch.golden.motion_int import motion_features_int
+    from pqa2_tpu_torch.golden.psnr import psnr_frame
+    from pqa2_tpu_torch.golden.ssim import ssim_plane
+    from pqa2_tpu_torch.golden.vif_int import vif_features_int
+    from pqa2_tpu_torch.ops.cuda_ssim import ssim_sse_plane
+    from pqa2_tpu_torch.ops.ssim import ssim_sse_plane_plain
+
+    t_phase = time.perf_counter()
+    ddir = os.path.join(WORK_DIR, "depth")
+    os.makedirs(ddir, exist_ok=True)
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    pairs = {}
+    for tag, n, (h, w), depth, dist_depth in (
+            ("4k8", DEPTH_FRAMES, DEPTH_4K, 8, None),
+            ("4k10", DEPTH_FRAMES, DEPTH_4K, 10, None),
+            ("1080p8_10", DEPTH_MIXED_FRAMES, DEPTH_MIXED, 8, 10)):
+        paths = (os.path.join(ddir, f"ref_{tag}.y4m"), os.path.join(ddir, f"dist_{tag}.y4m"))
+        t0 = time.perf_counter()
+        ry, dy = write_pair(n, h, w, *paths, torch, device, depth, dist_depth)
+        pairs[tag] = (paths, ry, dy)
+        log(f"[depth] wrote a {n}-frame {w}x{h} 4:2:0 pair, reference {depth}-bit, distorted "
+            f"{dist_depth or depth}-bit ({sum(os.path.getsize(p) for p in paths) / 1e9:.3f} "
+            f"GB) in {time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()
+
+    runs = (("8-bit 4K vmaf_4k_v0.6.1", "4k8", "vmaf_4k_v0.6.1", "integer"),
+            ("8-bit 4K vmaf_4k_v0.6.1neg", "4k8", "vmaf_4k_v0.6.1neg", "integer"),
+            ("8-bit 4K vmaf_float_4k_v0.6.1", "4k8", "vmaf_float_4k_v0.6.1", "float"),
+            ("10-bit 4K vmaf_4k_v0.6.1", "4k10", "vmaf_4k_v0.6.1", "integer"),
+            ("8/10-bit 1080p vmaf_v0.6.1", "1080p8_10", "vmaf_v0.6.1", "integer"))
+    decoded, launches = {}, {}
+    for label, tag, model, family in runs:
+        (ref_path, dist_path), ry, dy = pairs[tag]
+        n, h, w = ry.shape
+        depth = 10 if ry.dtype == np.uint16 or dy.dtype == np.uint16 else 8
+        peak = float((1 << depth) - 1)
+        chunks = -(-n // 32)
+        per = INT_PER_CHUNK if family == "integer" else FLOAT_PER_CHUNK
+        want_counts = {k: per.get(k, 0) * chunks for k in KERNELS}
+        a = VMAFAnalyzer(device=device)
+        a.set_output_directory(os.path.join(ddir, "out"))
+        a.set_test_name(f"depth_{tag}_{model}")
+
+        # The first run: launches, artifacts, peak memory.
+        torch.cuda.synchronize()
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        res, first_s, counts = counted(torch, lambda: a.analyze_videos(ref_path, dist_path,
+                                                                       model=model))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if counts != want_counts:
+            raise AssertionError(f"{label}: launches {counts}, expected {want_counts} "
+                                 f"({chunks} chunks)")
+        if tag == "4k8":
+            launches.setdefault(family, counts)
+        scores = a.last_scores
+        summary = check_depth_artifacts(res, scores, label, model, n, w, h, peak)
+        # A warm run of the same call: the same bits.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.analyze_videos(ref_path, dist_path, model=model)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        check_same_bits(f"{label} warm run", per_frame(a.last_scores), per_frame(scores))
+        rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+        log(f"[depth] {label}, {n} frames ({chunks} chunks) with PSNR+SSIM: VMAF "
+            f"{res['vmaf_score']:.4f} (per frame {scores.vmaf.min():.3f}.."
+            f"{scores.vmaf.max():.3f}), PSNR {res['psnr_score']:.4f} dB (log summary "
+            f"{summary:.6f} at peak {peak:g}), SSIM {res['ssim_score']:.6f}; artifacts "
+            f"checked; launches {counts}")
+        log(f"[times] depth {label}, {n} frames: first run {first_s:.3f} s "
+            f"({n / first_s:.2f} fps), warm run {warm_s:.3f} s ({n / warm_s:.2f} fps); "
+            f"peak device memory {peak_gb:.3f} GB ({100.0 * peak_gb / total_gb:.1f} % of "
+            f"{total_gb:.1f} GB; {base_gb:.3f} GB allocated before the run), process peak "
+            f"RSS {rss_gb:.3f} GB so far [{card}]")
+        if profile_dir:
+            profile_run(torch, lambda: a.analyze_videos(ref_path, dist_path, model=model),
+                        profile_dir, card, f"depth_{tag}_{model}_warm_run")
+
+        # The in-memory path on the same decoded frames: the same bits. The
+        # 8-bit reference of the mixed pair goes in promoted to 10-bit codes
+        # (x 4, exact), as the file path promotes it.
+        if tag not in decoded:
+            decoded.clear()
+            rp, dp = decode(ref_path), decode(dist_path)
+            if ry.dtype != dy.dtype:
+                rp = [{p: f[p].astype(np.uint16) << 2 for p in "yuv"} for f in rp]
+            decoded[tag] = (rp, dp)
+        rp, dp = decoded[tag]
+        mem, mem_s, mem_counts = counted(torch, lambda: a.analyze_frames(
+            rp, dp, model=model, reference_name=ref_path, distorted_name=dist_path,
+            bit_depth=depth))
+        if mem is None or mem_counts != want_counts:
+            raise AssertionError(f"{label} analyze_frames: launches {mem_counts}")
+        m = check_same_bits(f"{label} analyze_frames", per_frame(a.last_scores),
+                            per_frame(scores))
+        log(f"[depth] {label}: analyze_frames on the decoded frames gives {m} per-frame "
+            f"arrays (features, VMAF, PSNR, SSIM) equal to analyze_videos' in every bit, "
+            f"the same launches; {mem_s:.3f} s [{card}]")
+
+        if tag != "1080p8_10":
+            t0 = time.perf_counter()
+            check_plain_frames(torch, device, label, scores, ry, dy, depth, model, family)
+            log(f"[times] depth {label}: plain recomputation {time.perf_counter() - t0:.2f} s "
+                f"[{card}]")
+
+        if tag == "4k10":
+            # Kernel 4 at 10 bits (its constants scaled to the depth's peak)
+            # against its plain version on the card.
+            r = torch.from_numpy(ry[30:34].astype(np.float32) / 4.0).to(device)
+            d = torch.from_numpy(dy[30:34].astype(np.float32) / 4.0).to(device)
+            s_k, e_k = ssim_sse_plane(r, d, bit_depth=10)
+            s_p, e_p = ssim_sse_plane_plain(r, d, bit_depth=10)
+            err = (s_k.double() - s_p.double()).abs().max().item()
+            if err > SSIM_ATOL or not torch.equal(e_k, e_p):
+                raise AssertionError(f"{label}: kernel 4 at 10 bits vs plain {err:.3e}")
+            del r, d
+            # Frame 32 (the first of chunk 1) against the numpy oracles.
+            feats, t = scores.features, 32
+            t0 = time.perf_counter()
+            vo = np.array(vif_features_int(ry[t], dy[t], bit_depth=10))
+            t_vif = time.perf_counter() - t0
+            ao = adm_features_int(ry[t], dy[t], bit_depth=10)[0]
+            t_adm = time.perf_counter() - t0 - t_vif
+            mo, m2o = motion_features_int(ry[t - 1:t + 2], bit_depth=10)
+            t_mot = time.perf_counter() - t0 - t_vif - t_adm
+            so = {p: ssim_plane(rp[t][p], dp[t][p], 10) for p in "yuv"}
+            po = psnr_frame(rp[t], dp[t], max_value=1023)
+            t_all = time.perf_counter() - t0
+            vp = np.array([feats[f"vif_scale{s}"][t] for s in range(4)])
+            checks = [("vif", np.max(np.abs(vp - vo)), VIF_ATOL),
+                      ("adm2", abs(feats["adm2"][t] - ao), ADM_ATOL),
+                      ("motion", abs(feats["motion"][t] - mo[1]), MOTION_RTOL * abs(mo[1])),
+                      ("motion2", abs(feats["motion2"][t] - m2o[1]),
+                       MOTION_RTOL * abs(m2o[1]))]
+            checks += [(f"ssim_{p}", abs(scores.ssim[f"ssim_{p}"][t] - so[p]), DEPTH_SSIM_ATOL)
+                       for p in "yuv"]
+            checks += [(f"psnr_{p}", abs(scores.psnr[f"psnr_{p}"][t] - po[f"psnr_{p}"]),
+                        PSNR_ATOL) for p in ("y", "u", "v", "avg")]
+            for nm, diff, lim in checks:
+                if not diff <= lim:
+                    raise AssertionError(f"{label} frame {t} {nm}: {diff:.3e} from the "
+                                         f"oracle > {lim:.3e}")
+            log(f"[oracle] {label} frame {t}: " + ", ".join(
+                f"|{nm} - oracle| {diff:.3e}" for nm, diff, _ in checks)
+                + f"; kernel 4 at 10 bits vs plain {err:.3e}, SSE equal")
+            log(f"[times] depth oracles, one 3840x2160 10-bit frame on the host: vif_int "
+                f"{t_vif:.2f} s, adm_int {t_adm:.2f} s, motion_int (3 frames) {t_mot:.2f} s, "
+                f"ssim + psnr (Y, U, V) {t_all - t_vif - t_adm - t_mot:.2f} s [{card}]")
+        del a
+        torch.cuda.empty_cache()
+    decoded.clear()
+    shutil.rmtree(ddir, ignore_errors=True)
+    log(f"[times] depth phase: {time.perf_counter() - t_phase:.2f} s [{card}]")
+    return launches
+
+
 def profile_run(torch, run, out_dir, card, label):
     """torch.profiler over one call of ``run`` (a warm slice run, or one
     kernel call): device busy time against wall time, and the kernel table,
@@ -2267,8 +2683,13 @@ def main(argv=None) -> int:
     phase_capture(torch, device, card)
     phase_parallel(torch, card, ref_path, dist_path, slices, ladder)
     torch.cuda.empty_cache()
+    depth_launches = phase_depth(torch, device, card, args.profile)
+    torch.cuda.empty_cache()
     ref, dist = phase_kernels(torch, device, results)
     phase_times(torch, device, results, ref, dist, card, args.profile)
+    del ref, dist
+    torch.cuda.empty_cache()
+    phase_times_4k(torch, device, card, depth_launches)
     log(card)
     log(json.dumps({"kernels": list(results.values())}))
     log(json.dumps({"ok": True, "device": {
