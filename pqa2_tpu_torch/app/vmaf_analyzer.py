@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from pqa2_tpu_torch.io.video import probe_video
-from pqa2_tpu_torch.utils.profiling import ThroughputMeter, trace
+from pqa2_tpu_torch.utils.profiling import ThroughputMeter, span, trace
 from pqa2_tpu_torch.utils.signals import Signal
 from pqa2_tpu_torch.pipeline.json_out import write_vmaf_json
 from pqa2_tpu_torch.pipeline.scoring import ClipScores, pool_metric, score_planes
@@ -41,9 +41,10 @@ def _fmt(v: float, nd: int = 6) -> str:
 
 
 def write_psnr_log(scores: ClipScores, path: str) -> None:
-    """ffmpeg psnr stats_file lines plus an 'average' summary line."""
+    """ffmpeg psnr stats_file lines plus an 'average' summary line (span
+    ``app.write_psnr_log``)."""
     p = scores.psnr
-    with open(path, "w") as f:
+    with span("app.write_psnr_log"), open(path, "w") as f:
         for i in range(scores.n_frames):
             f.write(
                 f"n:{i + 1} mse_avg:{p['mse_avg'][i]:.2f} "
@@ -62,9 +63,10 @@ def write_psnr_log(scores: ClipScores, path: str) -> None:
 
 
 def write_ssim_log(scores: ClipScores, path: str) -> None:
-    """ffmpeg ssim stats_file lines plus an 'average' summary line."""
+    """ffmpeg ssim stats_file lines plus an 'average' summary line (span
+    ``app.write_ssim_log``)."""
     s = scores.ssim
-    with open(path, "w") as f:
+    with span("app.write_ssim_log"), open(path, "w") as f:
         for i in range(scores.n_frames):
             db = s["ssim_db"][i]
             f.write(
@@ -111,7 +113,7 @@ class VMAFAnalyzer:
         from the ``vmaf`` settings; the chunk size from ``tpu.chunk_size``
         (the settings file's category name). ``tpu.profile_dir`` is read at
         each ``analyze_videos``: a directory there gets a torch.profiler
-        trace of the scoring (``utils.profiling.trace``)."""
+        trace of the request, scoring and writers (``utils.profiling.trace``)."""
         self.options_manager = options_manager
         vmaf = options_manager.get_setting("vmaf") or {}
         self.model = vmaf.get("default_model", self.model)
@@ -146,11 +148,24 @@ class VMAFAnalyzer:
         """Score a ref/dist pair; returns the reference-shaped results dict
         and emits analysis_complete. On failure emits error_occurred and
         analysis_failed and returns None (the reference's contract)."""
+        profile_dir = None
+        if self.options_manager is not None:
+            profile_dir = (self.options_manager.get_setting("tpu") or {}).get("profile_dir")
+        return self._request(lambda: self._analyze(
+            reference_path, distorted_path, model or self.model, duration), profile_dir)
+
+    def _request(self, run, profile_dir: Optional[str] = None) -> Optional[Dict]:
+        """``run()`` under the lock, in an ``app.request`` span (``frames``:
+        the frames scored) inside the ``profile_dir`` trace, if any. On
+        failure emits error_occurred and analysis_failed and returns None."""
         with self._lock:
             self._abort.clear()
             try:
-                return self._analyze(reference_path, distorted_path,
-                                     model or self.model, duration)
+                with trace(profile_dir, label="vmaf_score", device=self.device), \
+                        span("app.request", request=True) as req:
+                    results = run()
+                    req.add(frames=results["frame_count"])
+                    return results
             except Exception as e:
                 logger.exception("analysis failed")
                 msg = f"VMAF analysis error: {e}"
@@ -184,31 +199,24 @@ class VMAFAnalyzer:
             status_cb=self.status_update.emit,
         )
 
-        profile_dir = None
-        if self.options_manager is not None:
-            profile_dir = (self.options_manager.get_setting("tpu") or {}).get(
-                "profile_dir"
-            )
-
         def on_chunk(k):
             if self._abort.is_set():
                 raise InterruptedError("analysis terminated")
             meter.add(k)
 
-        with trace(profile_dir, label="vmaf_score", device=self.device):
-            scores = stream_score(
-                reference_path,
-                distorted_path,
-                model=model,
-                chunk_size=self.chunk_size,
-                max_frames=max_frames,
-                with_psnr=self.psnr_enabled,
-                with_ssim=self.ssim_enabled,
-                frame_cb=on_chunk,
-                subsample=self.feature_subsample,
-                precision=self.feature_precision,
-                device=self.device,
-            )
+        scores = stream_score(
+            reference_path,
+            distorted_path,
+            model=model,
+            chunk_size=self.chunk_size,
+            max_frames=max_frames,
+            with_psnr=self.psnr_enabled,
+            with_ssim=self.ssim_enabled,
+            frame_cb=on_chunk,
+            subsample=self.feature_subsample,
+            precision=self.feature_precision,
+            device=self.device,
+        )
         self.analysis_progress.emit(80)
         return self._finalize(
             scores, fps=fps, model=model,
@@ -232,18 +240,9 @@ class VMAFAnalyzer:
         the decode-once entry point: the same signals, artifacts and results
         dict as :meth:`analyze_videos`. ``ref_y``/``dist_y`` may be the luma
         already on the 8-bit scale, on the device (not copied back)."""
-        with self._lock:
-            self._abort.clear()
-            try:
-                return self._analyze_frames(
-                    ref_planes, dist_planes, fps, model or self.model,
-                    reference_name, distorted_name, bit_depth, ref_y, dist_y)
-            except Exception as e:
-                logger.exception("analysis failed")
-                msg = f"VMAF analysis error: {e}"
-                self.error_occurred.emit(msg)
-                self.analysis_failed.emit(msg)
-                return None
+        return self._request(lambda: self._analyze_frames(
+            ref_planes, dist_planes, fps, model or self.model,
+            reference_name, distorted_name, bit_depth, ref_y, dist_y))
 
     def _analyze_frames(self, ref_planes, dist_planes, fps, model, reference_name,
                         distorted_name, bit_depth, ref_y=None, dist_y=None):

@@ -46,6 +46,7 @@ from pqa2_tpu_torch.golden.fixedpoint import (
     digits4_to_f32,
 )
 from pqa2_tpu_torch.ops.vif_int import to_native_grid
+from pqa2_tpu_torch.utils.profiling import span, to_host
 
 BANDS = ("h", "v", "d")
 
@@ -307,15 +308,16 @@ def adm_cascade(ref: torch.Tensor, dist: torch.Tensor, *, gain_limit: float,
         sums, r, d = level_fn(r, d, level=lvl, extra_row_shift=drop,
                               gain_limit=gain_limit)
         out.append(sums)
-    return torch.stack(out, dim=1).cpu().numpy()
+    return to_host(torch.stack(out, dim=1))
 
 
 def digits_from_sums(sums: np.ndarray) -> np.ndarray:
     """int64 sums -> base-2^16 digits (..., 4) high to low
-    (golden/adm_int.py:_cube_digits)."""
-    s = np.asarray(sums, dtype=np.int64)
-    return np.stack([(s >> 48) & 0xFFFF, (s >> 32) & 0xFFFF,
-                     (s >> 16) & 0xFFFF, s & 0xFFFF], axis=-1)
+    (golden/adm_int.py:_cube_digits). Span ``features.adm_tail``."""
+    with span("features.adm_tail"):
+        s = np.asarray(sums, dtype=np.int64)
+        return np.stack([(s >> 48) & 0xFFFF, (s >> 32) & 0xFFFF,
+                         (s >> 16) & 0xFFFF, s & 0xFFFF], axis=-1)
 
 
 def adm_from_digit_sums(digits: np.ndarray, h: int, w: int) -> np.ndarray:
@@ -325,27 +327,29 @@ def adm_from_digit_sums(digits: np.ndarray, h: int, w: int) -> np.ndarray:
     the stabiliser, one rounding per step.
 
     Trap 8: torch has no cbrt, and JAX's is ``jnp.cbrt`` in f32; this host
-    tail is the oracle's, within a float32 ulp of JAX's (adm2 atol 2e-6)."""
-    digits = np.asarray(digits)
-    n = digits.shape[0]
-    num = np.zeros(n, dtype=np.float32)
-    den = np.zeros(n, dtype=np.float32)
-    h2, w2 = h, w
-    for lvl in range(NUM_LEVELS):
-        h2, w2, th, tw, dshift = band_geometry(h2, w2)
-        n_core = (h2 - 2 * th) * (w2 - 2 * tw)
-        _, f_level = ADM_TAIL_TABLES[lvl]
-        scale = np.float32(2.0 ** (dshift - f_level))
-        stab = np.float32(float(n_core / 32.0) ** (1.0 / 3.0))
-        for i in range(3):
-            sn = digits4_to_f32(*np.moveaxis(digits[:, lvl, i, 0], -1, 0))
-            sd = digits4_to_f32(*np.moveaxis(digits[:, lvl, i, 1], -1, 0))
-            num = (num + (np.cbrt(sn) * scale).astype(np.float32)).astype(np.float32)
-            num = (num + stab).astype(np.float32)
-            den = (den + (np.cbrt(sd) * scale).astype(np.float32)).astype(np.float32)
-            den = (den + stab).astype(np.float32)
-    eps = np.float32(1e-10 * (w * h) / (1920.0 * 1080.0))
-    return ((num + eps).astype(np.float32) / (den + eps).astype(np.float32)).astype(np.float32)
+    tail is the oracle's, within a float32 ulp of JAX's (adm2 atol 2e-6).
+    Span ``features.adm_tail``."""
+    with span("features.adm_tail"):
+        digits = np.asarray(digits)
+        n = digits.shape[0]
+        num = np.zeros(n, dtype=np.float32)
+        den = np.zeros(n, dtype=np.float32)
+        h2, w2 = h, w
+        for lvl in range(NUM_LEVELS):
+            h2, w2, th, tw, dshift = band_geometry(h2, w2)
+            n_core = (h2 - 2 * th) * (w2 - 2 * tw)
+            _, f_level = ADM_TAIL_TABLES[lvl]
+            scale = np.float32(2.0 ** (dshift - f_level))
+            stab = np.float32(float(n_core / 32.0) ** (1.0 / 3.0))
+            for i in range(3):
+                sn = digits4_to_f32(*np.moveaxis(digits[:, lvl, i, 0], -1, 0))
+                sd = digits4_to_f32(*np.moveaxis(digits[:, lvl, i, 1], -1, 0))
+                num = (num + (np.cbrt(sn) * scale).astype(np.float32)).astype(np.float32)
+                num = (num + stab).astype(np.float32)
+                den = (den + (np.cbrt(sd) * scale).astype(np.float32)).astype(np.float32)
+                den = (den + stab).astype(np.float32)
+        eps = np.float32(1e-10 * (w * h) / (1920.0 * 1080.0))
+        return ((num + eps).astype(np.float32) / (den + eps).astype(np.float32)).astype(np.float32)
 
 
 def adm_features_int_batched(ref: torch.Tensor, dist: torch.Tensor,

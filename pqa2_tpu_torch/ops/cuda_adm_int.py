@@ -44,6 +44,7 @@ from pqa2_tpu_torch.ops.adm_int import (
     is_luma8,
 )
 from pqa2_tpu_torch.ops.cuda_vif_int import _check_device, host_taps
+from pqa2_tpu_torch.utils.profiling import span
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -115,9 +116,12 @@ adm_int_level.launches = 0
 def adm_features_int(ref: torch.Tensor, dist: torch.Tensor, *,
                      gain_limit: float = 100.0, bit_depth: int = 8) -> torch.Tensor:
     """(N, H, W) core luma pair -> (N,) f32 adm2 on ``ref.device``: the four
-    levels through :func:`adm_int_level`, the f32 tail on the host."""
-    sums = adm_cascade(ref, dist, gain_limit=gain_limit, bit_depth=bit_depth,
-                       level_fn=adm_int_level)
+    levels through :func:`adm_int_level` (span ``features.adm_int``), the
+    f32 tail on the host (spans ``features.adm_tail``, inside its two
+    functions)."""
+    with span("features.adm_int"):
+        sums = adm_cascade(ref, dist, gain_limit=gain_limit, bit_depth=bit_depth,
+                           level_fn=adm_int_level)
     adm = adm_from_digit_sums(digits_from_sums(sums), ref.shape[-2], ref.shape[-1])
     return torch.as_tensor(adm, device=ref.device)
 

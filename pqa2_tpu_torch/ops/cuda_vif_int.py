@@ -59,6 +59,7 @@ from pqa2_tpu_torch.ops.vif_int import (
     vif_cascade,
     vif_int_scale_plain,
 )
+from pqa2_tpu_torch.utils.profiling import span, to_host
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -99,7 +100,7 @@ def _check_8bit(*planes: torch.Tensor) -> None:
     only: int32 planes must hold values in [0, 255] (one reduction, one
     sync; uint8 planes need no check)."""
     lims = torch.stack([torch.stack(t.aminmax()) for t in planes])
-    lo, hi = lims[:, 0].min().item(), lims[:, 1].max().item()
+    lo, hi = to_host(lims[:, 0].min()).item(), to_host(lims[:, 1].max()).item()
     if lo < 0 or hi > 255:
         raise ValueError(f"in_q 0 needs 8-bit codes; the planes hold {lo}..{hi}")
 
@@ -239,11 +240,13 @@ def vif_motion_features_int(
     sad (N-1,) int64)``: VIF on the core frames, the motion SAD over every
     frame (as pqa2_tpu/ops/pallas_vif_int.py:1055 does; ``exact``
     picks the statistic). The chunk becomes codes once, so the core frames
-    stay a view of it and the scale-0 launch blurs them for the SAD."""
-    codes, _ = scale0_codes(ref, bit_depth)
-    return vif_cascade(codes[core], dist[core], gain_limit=gain_limit,
-                       bit_depth=bit_depth, scale_fn=vif_int_scale,
-                       motion_ref=codes, exact=exact)
+    stay a view of it and the scale-0 launch blurs them for the SAD.
+    Span ``features.vif_int``."""
+    with span("features.vif_int"):
+        codes, _ = scale0_codes(ref, bit_depth)
+        return vif_cascade(codes[core], dist[core], gain_limit=gain_limit,
+                           bit_depth=bit_depth, scale_fn=vif_int_scale,
+                           motion_ref=codes, exact=exact)
 
 
 def _log2_expected(device) -> torch.Tensor:

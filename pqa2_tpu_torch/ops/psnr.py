@@ -11,6 +11,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from pqa2_tpu_torch.utils.profiling import to_host
+
 
 def _sse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(N, H, W) pair -> (N,) float64 sum of squared differences: f32
@@ -39,7 +41,7 @@ def psnr_planes_batched(ref_y, ref_u, ref_v, dist_y, dist_u, dist_v,
     total_n = 0
     for name, r, d in (("y", ref_y, dist_y), ("u", ref_u, dist_u),
                        ("v", ref_v, dist_v)):
-        sse = _sse(r, d).cpu().numpy()
+        sse = to_host(_sse(r, d))
         n = r.shape[-2] * r.shape[-1]
         out[f"mse_{name}"] = sse / n
         out[f"psnr_{name}"] = psnr_from_mse_np(sse / n, max_value)

@@ -37,6 +37,7 @@ from pqa2_tpu_torch.ops.cuda_vif import vif_features
 from pqa2_tpu_torch.ops.cuda_vif_int import log2_table_audit, vif_motion_features_int
 from pqa2_tpu_torch.ops.motion import features_from_sad_prev
 from pqa2_tpu_torch.ops.motion_int import motion_from_sad
+from pqa2_tpu_torch.utils.profiling import to_host
 
 # "auto" follows the model's extractor family; "float"/"integer"/
 # "integer_fast" force one (same environment override as pqa2_tpu).
@@ -138,5 +139,5 @@ def extract_features_batched(
 def fetch_features(feats: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """Feature dict -> host numpy through one stacked device-to-host copy."""
     keys = sorted(feats)
-    packed = torch.stack([feats[k] for k in keys]).cpu().numpy()
+    packed = to_host(torch.stack([feats[k] for k in keys]))
     return {k: packed[i] for i, k in enumerate(keys)}

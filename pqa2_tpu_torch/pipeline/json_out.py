@@ -13,6 +13,7 @@ import numpy as np
 
 from pqa2_tpu_torch import __version__
 from pqa2_tpu_torch.pipeline.scoring import ClipScores, bootstrap_ci
+from pqa2_tpu_torch.utils.profiling import span
 
 
 def _metric_key(name: str, integer_features: bool) -> str:
@@ -88,7 +89,10 @@ def write_vmaf_json(
     fps: Optional[float] = None,
     integer_features: Optional[bool] = None,
 ) -> Dict:
-    obj = clip_scores_to_json(scores, fps=fps, integer_features=integer_features)
-    with open(path, "w") as f:
-        json.dump(obj, f, indent=2)
-    return obj
+    """Write the libvmaf-schema log to ``path`` and return its dict (span
+    ``app.write_vmaf_json``)."""
+    with span("app.write_vmaf_json"):
+        obj = clip_scores_to_json(scores, fps=fps, integer_features=integer_features)
+        with open(path, "w") as f:
+            json.dump(obj, f, indent=2)
+        return obj

@@ -39,6 +39,7 @@ from pqa2_tpu_torch.pipeline.features import (
     fetch_features,
     model_feature_params,
 )
+from pqa2_tpu_torch.utils.profiling import span, to_host
 
 DEFAULT_CHUNK_SIZE = 32
 
@@ -147,14 +148,21 @@ def upload(frames, device: torch.device, div: float = 1.0) -> torch.Tensor:
     numpy planes, a numpy array or a tensor (moved only when it lies
     elsewhere): 8-bit luma goes up as bytes. uint16 travels as int32
     (torch has no general uint16 ops); with ``div`` = 2^(depth-8) > 1 the
-    codes come onto the 8-bit scale on the device."""
+    codes come onto the 8-bit scale on the device. Spans
+    ``scoring.upload.stack`` (host numpy work) and ``scoring.upload.copy``
+    (``htod_bytes``: the bytes copied, 0 for a tensor already there)."""
     if isinstance(frames, torch.Tensor):
-        t = frames.to(device)
+        with span("scoring.upload.copy",
+                  htod_bytes=0 if frames.device == torch.device(device) else frames.nbytes):
+            t = frames.to(device)
     else:
-        a = np.stack(frames) if isinstance(frames, (list, tuple)) else np.asarray(frames)
-        if a.dtype == np.uint16:
-            a = a.astype(np.int32)
-        t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        with span("scoring.upload.stack"):
+            a = np.stack(frames) if isinstance(frames, (list, tuple)) else np.asarray(frames)
+            if a.dtype == np.uint16:
+                a = a.astype(np.int32)
+            a = np.ascontiguousarray(a)
+        with span("scoring.upload.copy", htod_bytes=a.nbytes):
+            t = torch.from_numpy(a).to(device)
     if div != 1.0:
         t = t.float() / div
     return t.contiguous()
@@ -163,17 +171,18 @@ def upload(frames, device: torch.device, div: float = 1.0) -> torch.Tensor:
 def score_features(features: Dict[str, np.ndarray], model: Model = "vmaf_v0.6.1", *,
                    device: Union[str, torch.device] = "cuda"):
     """Feature dict -> (vmaf (N,), bootstrap (M, N) or None), host numpy:
-    the model's SVR on ``device``."""
-    device = resolve_device(device)
-    mdl = _resolve_model(model)
-    x = torch.as_tensor(np.stack([features[k] for k in mdl.feature_names], axis=-1),
-                        dtype=torch.float32, device=device)
-    predictor = predictor_for_model(mdl, device=device)
-    with torch.no_grad():
-        if isinstance(predictor, BootstrapPredictor):
-            vmaf, boot = predictor(x)
-            return vmaf.cpu().numpy(), boot.cpu().numpy()
-        return predictor(x).cpu().numpy(), None
+    the model's SVR on ``device`` (span ``scoring.svr``)."""
+    with span("scoring.svr"):
+        device = resolve_device(device)
+        mdl = _resolve_model(model)
+        x = torch.as_tensor(np.stack([features[k] for k in mdl.feature_names], axis=-1),
+                            dtype=torch.float32, device=device)
+        predictor = predictor_for_model(mdl, device=device)
+        with torch.no_grad():
+            if isinstance(predictor, BootstrapPredictor):
+                vmaf, boot = predictor(x)
+                return to_host(vmaf), to_host(boot)
+            return to_host(predictor(x)), None
 
 
 def plane_metrics(planes: Dict[str, Tuple[torch.Tensor, torch.Tensor]], bit_depth: int,
@@ -184,7 +193,12 @@ def plane_metrics(planes: Dict[str, Tuple[torch.Tensor, torch.Tensor]], bit_dept
     ``planes``: {"y", "u", "v"} -> (ref, dist) (N, H, W) f32 on the 8-bit
     scale. With both metrics one kernel pass per plane gives SSIM and the
     SSE; the 8-bit-scale SSE rescales exactly to native codes (PSNR at the
-    native peak)."""
+    native peak). Span ``scoring.plane_metrics``."""
+    with span("scoring.plane_metrics"):
+        return _plane_metrics(planes, bit_depth, with_psnr, with_ssim)
+
+
+def _plane_metrics(planes, bit_depth: int, with_psnr: bool, with_ssim: bool):
     max_div = float(1 << (bit_depth - 8))
     peak = float((1 << bit_depth) - 1)
     psnr = ssim = None
@@ -193,12 +207,12 @@ def plane_metrics(planes: Dict[str, Tuple[torch.Tensor, torch.Tensor]], bit_dept
         tot, tot_w, tot_sse = 0.0, 0, 0.0
         for p, (r, d) in planes.items():
             vv, sse8 = ssim_sse_plane(r.contiguous(), d.contiguous(), bit_depth=bit_depth)
-            vv = vv.cpu().numpy()
+            vv = to_host(vv)
             ssim[f"ssim_{p}"] = vv
             w = r.shape[-2] * r.shape[-1]
             tot = tot + vv * w
             tot_w += w
-            sse = sse8.cpu().numpy() * (max_div * max_div)
+            sse = to_host(sse8) * (max_div * max_div)
             psnr[f"mse_{p}"] = sse / w
             psnr[f"psnr_{p}"] = psnr_from_mse_np(sse / w, max_value=peak)
             tot_sse = tot_sse + sse
@@ -214,8 +228,8 @@ def plane_metrics(planes: Dict[str, Tuple[torch.Tensor, torch.Tensor]], bit_dept
         ssim = {}
         tot, tot_w = 0.0, 0
         for p, (r, d) in planes.items():
-            vv = ssim_sse_plane(r.contiguous(), d.contiguous(),
-                                bit_depth=bit_depth)[0].cpu().numpy()
+            vv = to_host(ssim_sse_plane(r.contiguous(), d.contiguous(),
+                                        bit_depth=bit_depth)[0])
             ssim[f"ssim_{p}"] = vv
             w = r.shape[-2] * r.shape[-1]
             tot = tot + vv * w

@@ -40,6 +40,7 @@ from pqa2_tpu_torch.pipeline.scoring import (
     resolve_device,
     upload,
 )
+from pqa2_tpu_torch.utils.profiling import current_request, join_request, span
 
 logger = logging.getLogger(__name__)
 
@@ -78,9 +79,11 @@ def _check_geometry(ref_r, dist_r, ref_path, dist_path) -> None:
 
 
 def _chunk_producer(ref_path, dist_path, chunk_size, out_q, max_frames, stop,
-                    meta, subsample) -> None:
+                    meta, subsample, request=None) -> None:
     """Read paired chunks; each queue item is (ref_frames, dist_frames, eof)
-    or the exception that stopped the reader (pqa2_tpu streaming.py:68)."""
+    or the exception that stopped the reader (pqa2_tpu streaming.py:68).
+    Each chunk's reading is a ``streaming.decode`` span of ``request``."""
+    join_request(request)
     readers = []
     try:
         ref_r = _open_reader(ref_path)
@@ -94,16 +97,19 @@ def _chunk_producer(ref_path, dist_path, chunk_size, out_q, max_frames, stop,
         ref_buf: List[Dict] = []
         dist_buf: List[Dict] = []
         while not stop.is_set():
-            rf = ref_r.read_frame()
-            df = dist_r.read_frame()
-            eof = rf is None or df is None
-            if not eof:
-                if n_read % subsample == 0:
-                    ref_buf.append(rf)
-                    dist_buf.append(df)
-                n_read += 1
-                if max_frames is not None and n_read >= max_frames:
-                    eof = True
+            eof = False
+            with span("streaming.decode"):
+                while not (eof or len(ref_buf) == chunk_size or stop.is_set()):
+                    rf = ref_r.read_frame()
+                    df = dist_r.read_frame()
+                    eof = rf is None or df is None
+                    if not eof:
+                        if n_read % subsample == 0:
+                            ref_buf.append(rf)
+                            dist_buf.append(df)
+                        n_read += 1
+                        if max_frames is not None and n_read >= max_frames:
+                            eof = True
             if eof or len(ref_buf) == chunk_size:
                 out_q.put((ref_buf, dist_buf, eof))
                 ref_buf, dist_buf = [], []
@@ -145,7 +151,8 @@ def stream_score(
     meta: Dict = {}
     producer = threading.Thread(
         target=_chunk_producer,
-        args=(ref_path, dist_path, chunk_size, q, max_frames, stop, meta, subsample),
+        args=(ref_path, dist_path, chunk_size, q, max_frames, stop, meta, subsample,
+              current_request()),
         daemon=True)
     producer.start()
 
@@ -159,7 +166,10 @@ def stream_score(
 
     try:
         while True:
-            item = pending if pending is not None else q.get()
+            item = pending
+            if item is None:
+                with span("streaming.decode_wait"):
+                    item = q.get()
             pending = None
             if isinstance(item, Exception):
                 raise item
@@ -169,7 +179,8 @@ def stream_score(
             # Peek one chunk ahead for the next-halo unless this is the end.
             next_head: Optional[Tuple[Dict, Dict]] = None
             if not eof:
-                nxt = q.get()
+                with span("streaming.decode_wait"):
+                    nxt = q.get()
                 if isinstance(nxt, Exception):
                     raise nxt
                 pending = nxt
